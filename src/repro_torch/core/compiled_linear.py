@@ -1,0 +1,249 @@
+"""CompiledLinear — constant-parameter compilation and the compiled
+forward of linear and conv leaves (ports ``repro/core/compiled_linear.py``
+for the ``int8`` and ``sparse_cfmm`` serve modes).
+
+Per serve mode a compiled weight leaf is:
+
+  int8         {'values': int8, 'scale'}    W-INT7 A-INT8, int8 products
+  sparse_cfmm  {'bitmap': uint8, 'values': int8, 'scale'}
+               bitmap-packed constant sparsity, (1-s)*8 + 1 bits/param;
+               K pads up to a multiple of 8 with masked all-zero rows
+
+Every conv leaf is stored in the conv kernels' spatial-major tap layout
+(row = tap*c_in + c) and carries its ``ConvGeom``; the layout permute
+runs here, once.  The bytes are equal to the JAX package's for the same
+float weights (tested).  The other modes (``dense``, ``cfmm``,
+``bitserial``) and depthwise leaves belong to later port slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import nn
+from repro_torch.core.quantize import INT8_ACT_MAX, quantize_int7
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.bitmap import expand_bitmap_tile
+
+SERVE_MODES = ("int8", "sparse_cfmm")
+
+
+def act_quant(x: torch.Tensor, *, per_row: bool = False):
+    """Dynamic INT8 activation quantization (the Collector saturates and
+    rounds activations to 8 bits, paper SS II-D.4).
+
+    ``per_row=False``: one tensor-wide scalar scale.  ``per_row=True``:
+    one scale per leading-axis row (scale shape ``(N,)``), so a row's
+    codes never depend on its batch neighbours.  The scale is
+    ``amax * f32(1/127)``, as in the JAX package's jitted forward.
+    """
+    ax = torch.abs(x.float())
+    amax = torch.amax(ax, dim=tuple(range(1, x.ndim))) if per_row \
+        else torch.amax(ax)
+    scale = ops.requant_scale(amax)
+    s_b = scale.reshape((-1,) + (1,) * (x.ndim - 1)) if per_row else scale
+    q = torch.clamp(torch.round(x.float() / s_b), -INT8_ACT_MAX,
+                    INT8_ACT_MAX).to(torch.int8)
+    return q, scale
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvGeom:
+    """Static (k, stride, c_in) geometry riding a compiled conv weight."""
+
+    k: int
+    stride: int
+    c_in: int
+    dw: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class KDim:
+    """Unpadded K of an off-%8 *linear* bitmap leaf (stored with
+    ceil(K/8)*8 rows by the pad_rows8 rule)."""
+
+    k: int
+
+
+# ---------------------------------------------------------------------------
+# Bitmap packing
+# ---------------------------------------------------------------------------
+
+def balanced_prune_codes(w: torch.Tensor, keep_k: int):
+    """Keep the top-``keep_k`` |w| entries per column; quantize to INT7.
+    The double stable argsort breaks ties as the JAX package's does."""
+    ranks = torch.argsort(torch.argsort(-torch.abs(w), dim=0, stable=True),
+                          dim=0, stable=True)
+    pruned = torch.where(ranks < keep_k, w, torch.zeros_like(w))
+    return quantize_int7(pruned, axis=-1)
+
+
+def bitmap_pack(codes: torch.Tensor, keep_k: int):
+    """int8 codes (K, N) with <= keep_k nonzeros/col -> (bitmap, values).
+
+    bitmap: (K/8, N) uint8, little-endian bit j of row r = mask[8r+j].
+    values: (keep_k, N) int8, nonzeros in ascending row order.
+    """
+    K, N = codes.shape
+    assert K % 8 == 0, f"K={K} must be divisible by 8"
+    mask = codes != 0
+    pos = torch.cumsum(mask.to(torch.int64), dim=0) - 1   # rank within col
+    cols = torch.arange(N, device=codes.device).expand(K, N)
+    keep = mask & (pos < keep_k)                          # the rest drop
+    values = torch.zeros((keep_k, N), dtype=torch.int8, device=codes.device)
+    values[pos[keep], cols[keep]] = codes[keep]
+    bits = mask.reshape(K // 8, 8, N).to(torch.int32)
+    weights = (1 << torch.arange(8, dtype=torch.int32,
+                                 device=codes.device)).reshape(1, 8, 1)
+    bitmap = (bits * weights).sum(dim=1).to(torch.uint8)
+    return bitmap, values
+
+
+def bitmap_unpack(bitmap: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Inverse of bitmap_pack -> dense int8 codes (K, N)."""
+    base = torch.zeros((1, bitmap.shape[1]), dtype=torch.int32,
+                       device=bitmap.device)
+    return expand_bitmap_tile(bitmap, values, base, values.shape[0])[0]
+
+
+def pad_rows8(codes: torch.Tensor) -> torch.Tensor:
+    """Pad the K axis up to a multiple of 8 with all-zero (masked) rows."""
+    pad = (-codes.shape[0]) % 8
+    if pad == 0:
+        return codes
+    return torch.cat([codes, codes.new_zeros((pad, codes.shape[1]))])
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def apply_linear(w: dict, x: torch.Tensor,
+                 per_row: bool = False) -> torch.Tensor:
+    """y = x @ W for a compiled weight leaf.  Preserves x.dtype.
+
+    ``per_row=True`` quantizes each flattened input row under its own
+    INT8 domain — the compiled ResNet head uses it so a request's logits
+    never depend on which rows share its microbatch.  The int8 product
+    is exact: int8 x int8 summed in float64 (kernels/ref.py), on the CPU
+    and on the card alike.
+    """
+    assert "geom" not in w, "compiled conv leaf: use apply_conv"
+    lead = tuple(x.shape[:-1])
+    x_q, s_x = act_quant(x.reshape(-1, x.shape[-1]), per_row=per_row)
+    if "bitmap" in w:                              # sparse_cfmm
+        acc = ops.sparse_cfmm_matmul(x_q, w["bitmap"], w["values"])
+    elif "values" in w:                            # int8
+        acc = kref.int8_matmul_ref(x_q, w["values"])
+    else:
+        raise NotImplementedError(
+            f"weight leaf {sorted(w)}: the cfmm and bitserial serve modes "
+            "belong to a later port slice")
+    s_row = s_x.reshape(-1, 1) if per_row else s_x
+    y = acc.float() * (s_row * w["scale"].reshape(1, -1))
+    return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
+
+
+def apply_conv(w: dict, x_q: torch.Tensor, x_scale, *, gamma=None,
+               beta=None, shortcut=None, relu: bool = True,
+               quant_out: bool = False):
+    """Fused conv forward for a compiled conv leaf (carries its geometry).
+
+    Dispatch rides the leaf's storage keys: ``bitmap`` leaves hand the
+    packed pair to the bitmap-native sparse conv kernel; int8 leaves feed
+    the dense implicit-GEMM kernel.  Returns f32 NHWC, or (int8, scale)
+    with quant_out (see kernels.ops.conv2d).
+    """
+    geom = w["geom"]
+    if geom.dw:
+        raise NotImplementedError("depthwise convs belong to the "
+                                  "mobilenet_v2 port slice")
+    codes = (w["bitmap"], w["values"]) if "bitmap" in w else w["values"]
+    return ops.conv2d(x_q, codes, geom.k, geom.stride, x_scale=x_scale,
+                      w_scale=w["scale"], gamma=gamma, beta=beta,
+                      shortcut=shortcut, relu=relu, quant_out=quant_out)
+
+
+# ---------------------------------------------------------------------------
+# Compilation (training tree -> constant-parameter serving tree)
+# ---------------------------------------------------------------------------
+
+def _leaf_axes(kind: str, in_ax, out_ax):
+    if kind in ("scale", "values"):
+        return (None, out_ax)
+    return (in_ax, out_ax)               # bitmap: rows = ceil(in/8)
+
+
+def _compile_leaf(p: nn.Param, mode: str, sparsity: float) -> dict:
+    if nn.dwconv_geom_of(p.kind) is not None:
+        raise NotImplementedError("depthwise leaves belong to the "
+                                  "mobilenet_v2 port slice")
+    w = p.value.float()
+    if w.ndim != 2:
+        raise NotImplementedError(f"stacked leaves {tuple(w.shape)} belong "
+                                  "to the LM port slice")
+    in_ax, out_ax = p.axes[-2], p.axes[-1]
+    geom = nn.conv_geom_of(p.kind)
+    out = _compile_leaf_2d(w, mode, sparsity,
+                           geom[0] if geom is not None else None)
+    packed = {k: nn.Param(v, _leaf_axes(k, in_ax, out_ax))
+              for k, v in out.items()}
+    if geom is not None:                           # conv weights stay
+        k, stride = geom                           # self-describing
+        packed["geom"] = ConvGeom(k, stride, w.shape[0] // (k * k))
+    elif mode == "sparse_cfmm" and w.shape[0] % 8 != 0:
+        packed["kdim"] = KDim(w.shape[0])          # unpadded K (pad_rows8)
+    return packed
+
+
+def _compile_leaf_2d(w: torch.Tensor, mode: str, sparsity: float,
+                     conv_k: int | None = None) -> dict:
+    K = w.shape[0]
+    if mode == "sparse_cfmm":
+        keep_k = max(8, int(round(K * (1.0 - sparsity))))
+        keep_k = min(K, ((keep_k + 7) // 8) * 8)
+        qt = balanced_prune_codes(w, keep_k)
+        codes = qt.values
+        if conv_k is not None:   # pack in the kernels' spatial-major order
+            codes = kref.to_spatial_major(codes, conv_k,
+                                          K // (conv_k * conv_k))
+        bitmap, values = bitmap_pack(pad_rows8(codes), keep_k)
+        return {"bitmap": bitmap, "values": values,
+                "scale": qt.scale.reshape(1, -1)}
+    qt = quantize_int7(w, axis=-1)
+    codes = qt.values
+    if conv_k is not None:       # the one conv weight-layout shuffle
+        codes = kref.to_spatial_major(codes, conv_k, K // (conv_k * conv_k))
+    return {"values": codes.contiguous(), "scale": qt.scale.reshape(1, -1)}
+
+
+def compile_params(params, mode: str = "sparse_cfmm", sparsity: float = 0.8):
+    """Convert a trained param tree to its Compiled-NN serving form.
+
+    Only linear- and conv-kind leaves are packed; norms and biases stay
+    as they are.  Compiled conv leaves gain a static ``geom`` entry.
+    """
+    if mode not in SERVE_MODES:
+        raise NotImplementedError(
+            f"serve mode {mode!r} belongs to a later port slice; this "
+            f"slice compiles {SERVE_MODES}")
+
+    def visit(p):
+        if isinstance(p, nn.Param) and nn.compilable(p.kind) \
+                and p.value.ndim >= 2:
+            return _compile_leaf(p, mode, sparsity)
+        return p
+
+    return nn.tree_map(visit, params, is_leaf=lambda x: isinstance(x, nn.Param))
+
+
+def ensure_compiled(params, mode: str, sparsity: float):
+    """The serving engine's front door: a boxed training tree compiles
+    (and unboxes) to its constant-parameter form; an already-compiled
+    unboxed tree passes through untouched (``out is params``)."""
+    boxed = any(isinstance(l, nn.Param) for l in nn.tree_leaves(
+        params, is_leaf=lambda x: isinstance(x, nn.Param)))
+    return nn.unbox(compile_params(params, mode=mode, sparsity=sparsity)) \
+        if boxed else params

@@ -1,0 +1,63 @@
+"""INT7 per-output-channel weight / INT8 activation quantization (ports
+``repro/core/quantize.py``).
+
+Weights: symmetric per-output-channel INT7 (|q| <= 63, the range of the
+paper's six ternary residual terms), stored in int8.  Activations: INT8,
+"saturated and rounded to 8 bits" in the Collector (paper SS II-D.4),
+with one tensor-wide scale or one scale per leading-axis row.
+
+Rounding matches the JAX package as it runs eagerly (``compile_params``):
+``amax / qmax`` is a true division.  ``torch.round`` rounds half to even,
+like ``jnp.round``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+INT7_MAX = 63          # 2**6 - 1: six ternary residual terms
+INT8_ACT_MAX = 127     # activations saturate/round to 8 bits
+
+
+@dataclasses.dataclass
+class QTensor:
+    """Quantized tensor: int8 codes + f32 scale broadcastable over them."""
+
+    values: torch.Tensor   # int8
+    scale: torch.Tensor    # f32
+    axis: int = -1
+
+
+def _channel_scale(w: torch.Tensor, axis: int, qmax: int) -> torch.Tensor:
+    reduce_axes = tuple(i for i in range(w.ndim) if i != axis % w.ndim)
+    amax = torch.amax(torch.abs(w), dim=reduce_axes, keepdim=True)
+    return torch.clamp_min(amax, 1e-12) / qmax
+
+
+def quantize_int7(w: torch.Tensor, axis: int = -1) -> QTensor:
+    """Symmetric per-output-channel INT7 weight quantization."""
+    scale = _channel_scale(w, axis, INT7_MAX)
+    q = torch.clamp(torch.round(w / scale), -INT7_MAX, INT7_MAX)
+    return QTensor(q.to(torch.int8), scale.to(torch.float32), axis)
+
+
+def quantize_act_int8(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                      per_row: bool = False) -> QTensor:
+    """INT8 activation quantization (dynamic if no scale given).
+
+    ``per_row=False``: one tensor-wide scale.  ``per_row=True``: one scale
+    per leading-axis row, reduced over every other axis with keepdim so
+    ``scale`` broadcasts against ``values``.
+    """
+    if scale is None:
+        if per_row:
+            amax = torch.amax(torch.abs(x), dim=tuple(range(1, x.ndim)),
+                              keepdim=True)
+        else:
+            amax = torch.amax(torch.abs(x))
+        scale = torch.clamp_min(amax, 1e-12) / INT8_ACT_MAX
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    q = torch.clamp(torch.round(x / scale), -INT8_ACT_MAX, INT8_ACT_MAX)
+    return QTensor(q.to(torch.int8), scale, 0 if per_row else -1)

@@ -1,0 +1,113 @@
+"""The conv and sparse-matmul ops of the main path (ports the
+``conv2d`` and ``sparse_cfmm_matmul`` parts of ``repro/kernels/ops.py``).
+
+Each op prepares its kernel's arguments and calls the kernel's wrapper,
+which dispatches by the tensor's device alone: the plain PyTorch version
+for a CPU tensor, the CUDA kernel for a CUDA tensor.
+
+Numerics follow the JAX package's jitted lowering, which is what its
+serving path and ``reference_logits`` run: XLA rewrites ``amax / 127.0``
+as ``amax * f32(1/127)`` inside a jit, while ``y / s_y`` stays a true
+division; the Collector's ``acc * scale + bias`` is one fused
+multiply-add (kernels/ref.py ``fma_f32``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.conv_implicit import conv2d_implicit
+from repro_torch.kernels.conv_sparse import conv2d_sparse
+from repro_torch.kernels.sparse_matvec import sparse_matvec
+
+INV_127 = 1.0 / 127.0      # rounds to XLA's folded f32(1/127) constant
+
+
+def requant_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-12) / 127`` as the jitted JAX lowering computes it."""
+    inv = torch.tensor(INV_127, dtype=torch.float32, device=amax.device)
+    return torch.clamp_min(amax, 1e-12) * inv
+
+
+def sparse_cfmm_matmul(x_q: torch.Tensor, bitmap: torch.Tensor,
+                       values: torch.Tensor,
+                       scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Bitmap-packed sparse matmul; int32 out (or f32 with scale)."""
+    if bitmap.shape[0] * 8 != x_q.shape[1]:
+        # K padded to a multiple of 8 at compile time (masked tail rows);
+        # zero int8 activations are exact, so pad x to match
+        pad = bitmap.shape[0] * 8 - x_q.shape[1]
+        assert 0 < pad < 8, (bitmap.shape, x_q.shape)
+        x_q = F.pad(x_q, (0, pad))
+    acc = sparse_matvec(x_q.contiguous(), bitmap, values)
+    return acc if scale is None else acc.float() * scale
+
+
+def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,
+           w_scale: torch.Tensor, gamma: torch.Tensor | None = None,
+           beta: torch.Tensor | None = None,
+           shortcut: torch.Tensor | None = None, relu: bool = True,
+           quant_out: bool = False):
+    """Fused implicit-GEMM int8 SAME conv + Collector.
+
+    x_q:     (N, H, W, c_in) int8 activations; x_scale their scale — a
+             scalar (per-tensor domain) or an ``(N,)`` per-row vector
+             (one domain per image).  With a per-row x_scale, quant_out
+             emits a per-row y_scale.
+    codes:   (k*k*c_in, c_out) int8 weight codes in the compiled
+             spatial-major tap order (``compile_params`` stores every conv
+             leaf so), OR a packed ``(bitmap, values)`` pair in the same
+             layout (sparse_cfmm).
+    w_scale: per-output-channel dequant scale, broadcastable to (c_out,)
+    gamma/beta: folded-BN scale and bias
+    shortcut:   optional f32 (N, h_out, w_out, c_out) residual, or an
+                int8 ``(codes, scale)`` pair (scalar or per-row scale):
+                the dequantized identity shortcut, fused into the
+                epilogue as ``fma(codes, scale, y)``
+    quant_out:  round the output back to int8 -> (y_q int8, y_scale);
+                otherwise returns f32 (N, h_out, w_out, c_out).
+    """
+    N, _, _, C = x_q.shape
+    dev = x_q.device
+    packed = isinstance(codes, (tuple, list))
+    if packed:
+        bitmap, values = codes
+        n_out = bitmap.shape[1]
+        assert bitmap.shape[0] * 8 == -(-C * k * k // 8) * 8, (
+            bitmap.shape, C, k)
+    else:
+        n_out = codes.shape[1]
+        assert codes.shape[0] == C * k * k, (codes.shape, C, k)
+    x_s = torch.as_tensor(x_scale, dtype=torch.float32, device=dev)
+    per_row = x_s.ndim >= 1
+    col_scale = w_scale.reshape(-1).float()
+    if gamma is not None:
+        col_scale = col_scale * gamma.float()
+    # one dequant row per image: per-row domains index it by image, a
+    # per-tensor scalar repeats the same row
+    eff_rows = (x_s.reshape(-1, 1) * col_scale.reshape(1, -1)).expand(
+        N, n_out).contiguous()
+    eff_bias = (torch.zeros((n_out,), dtype=torch.float32, device=dev)
+                if beta is None else beta.float().contiguous())
+    if isinstance(shortcut, (tuple, list)):   # int8 (codes, scale) pair
+        q_sc, s_sc = shortcut
+        s_sc = torch.as_tensor(s_sc, dtype=torch.float32, device=dev)
+        sc = (q_sc.contiguous(), s_sc.reshape(-1).expand(N).contiguous())
+    else:
+        sc = None if shortcut is None else shortcut.float().contiguous()
+    x_q = x_q.contiguous()
+    if packed:
+        y, amax_rows = conv2d_sparse(x_q, bitmap, values, eff_rows, eff_bias,
+                                     sc, k=k, stride=stride, relu=relu)
+    else:
+        y, amax_rows = conv2d_implicit(x_q, codes.contiguous(), eff_rows,
+                                       eff_bias, sc, k=k, stride=stride,
+                                       relu=relu)
+    if not quant_out:
+        return y
+    # the requant tail: activations go straight back to int8; under
+    # per-row domains s_y is (N,) — one independent scale per image
+    s_y = requant_scale(amax_rows if per_row else torch.amax(amax_rows))
+    s_b = s_y.reshape(-1, 1, 1, 1) if per_row else s_y
+    y_q = torch.clamp(torch.round(y / s_b), -127, 127).to(torch.int8)
+    return y_q, s_y

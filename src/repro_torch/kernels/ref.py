@@ -1,0 +1,183 @@
+"""Plain PyTorch versions of the main-path kernels (ports the main-path
+oracles of ``repro/kernels/ref.py``).
+
+These are what a kernel wrapper runs for a CPU tensor, and what the CUDA
+kernels are held against on the card.  Integer paths are exact: int8
+products are summed in float64, which holds every int32 accumulator these
+shapes can reach (|acc| <= 127 * 127 * K, far below 2**53) without
+rounding, on the CPU and on the card alike.
+
+The Collector's ``acc * scale + bias`` is rounded ONCE to f32
+(``fma_f32``): the JAX package's jitted lowering contracts it into one
+fused multiply-add, and the CUDA kernels use ``fmaf``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.bitmap import expand_bitmap_tile
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 operands, rounded once to f32.
+
+    The product of two f32 values is exact in f64; the f64 sum is then
+    rounded to f32.  That second rounding is the correct single rounding
+    unless the f64 sum lands exactly halfway between two f32 neighbours
+    while the f64 addition itself rounded (TwoSum error ``e != 0``): the
+    true sum then lies on ``e``'s side of the midpoint, and the tie is
+    broken that way.
+    """
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    r = s.float()
+    d = s - r.double()
+    inf = torch.full_like(r, float("inf"))
+    nb = torch.nextafter(r, torch.where(d > 0, inf, -inf))
+    tie = (d != 0) & ((r.double() + nb.double()) * 0.5 == s)
+    fix = tie & (e != 0) & ((e > 0) == (d > 0))
+    return torch.where(fix, nb, r)
+
+
+def int8_matmul_ref(x_q: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> int32 (exact)."""
+    return (x_q.double() @ codes.double()).to(torch.int32)
+
+
+def sparse_matvec_ref(x_q: torch.Tensor, bitmap: torch.Tensor,
+                      values: torch.Tensor) -> torch.Tensor:
+    """x_q (M, K) int8 @ bitmap-packed codes -> int32 (M, N) (exact)."""
+    base = torch.zeros((1, bitmap.shape[1]), dtype=torch.int32,
+                       device=bitmap.device)
+    dense, _ = expand_bitmap_tile(bitmap, values, base, values.shape[0])
+    return int8_matmul_ref(x_q, dense)
+
+
+# ---------------------------------------------------------------------------
+# Convolution
+# ---------------------------------------------------------------------------
+
+def to_spatial_major(codes: torch.Tensor, k: int, c_in: int) -> torch.Tensor:
+    """Channel-major patch codes (c_in*k*k, n) -> spatial-major tap order
+    (k*k*c_in, n), row = tap*c_in + c — the layout the conv kernels
+    consume; ``compile_params`` runs it once per dense conv leaf."""
+    n = codes.shape[-1]
+    return codes.reshape(c_in, k, k, n).permute(1, 2, 0, 3).reshape(
+        k * k * c_in, n)
+
+
+def from_spatial_major(codes_sp: torch.Tensor, k: int,
+                       c_in: int) -> torch.Tensor:
+    """Inverse of ``to_spatial_major``."""
+    n = codes_sp.shape[-1]
+    return codes_sp.reshape(k, k, c_in, n).permute(2, 0, 1, 3).reshape(
+        k * k * c_in, n)
+
+
+def same_pads(size: int, k: int, stride: int):
+    """SAME-padding (lo, hi) and output size along one spatial dim."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2, out
+
+
+def pad_same_nhwc(x: torch.Tensor, k: int, stride: int, value=0):
+    """Pad (N,H,W,C) for SAME conv -> (padded, h_out, w_out).
+
+    Zero padding is exact for symmetric int8 codes (zero point is 0); the
+    max-pool pads with ``value=-inf``."""
+    _, H, W, _ = x.shape
+    lo_h, hi_h, h_out = same_pads(H, k, stride)
+    lo_w, hi_w, w_out = same_pads(W, k, stride)
+    if lo_h or hi_h or lo_w or hi_w:
+        x = F.pad(x, (0, 0, lo_w, hi_w, lo_h, hi_h), value=value)
+    return x, h_out, w_out
+
+
+def _shift_slice(xp: torch.Tensor, dy: int, dx: int, h_out: int,
+                 w_out: int, stride: int) -> torch.Tensor:
+    """The (dy, dx) tap of the receptive field, strided to output
+    positions."""
+    return xp[:, dy:dy + (h_out - 1) * stride + 1:stride,
+              dx:dx + (w_out - 1) * stride + 1:stride, :]
+
+
+def _conv_taps_spatial(xp: torch.Tensor, w_sp: torch.Tensor, k: int,
+                       stride: int, h_out: int, w_out: int) -> torch.Tensor:
+    """Tap-loop int8 conv on a padded image with spatial-major weights.
+
+    xp: (N, Hp, Wp, C) int8; w_sp: (k, k, C, n_out) int8 -> int32 NHWC.
+    """
+    N, C, n_out = xp.shape[0], xp.shape[3], w_sp.shape[-1]
+    acc = torch.zeros((N * h_out * w_out, n_out), dtype=torch.float64,
+                      device=xp.device)
+    for dy in range(k):
+        for dx in range(k):
+            sl = _shift_slice(xp, dy, dx, h_out, w_out, stride)
+            acc += sl.reshape(-1, C).double() @ w_sp[dy, dx].double()
+    return acc.to(torch.int32).reshape(N, h_out, w_out, n_out)
+
+
+def conv2d_int8_ref(x_q: torch.Tensor, w_sp: torch.Tensor, k: int,
+                    stride: int) -> torch.Tensor:
+    """int8 NHWC SAME conv -> int32 (exact): shift-slice matmuls.
+
+    w_sp: (k*k*c_in, c_out) int8 in the compiled spatial-major tap order
+    (row = tap*c_in + c)."""
+    C, n_out = x_q.shape[3], w_sp.shape[1]
+    xp, h_out, w_out = pad_same_nhwc(x_q, k, stride)
+    return _conv_taps_spatial(xp, w_sp.reshape(k, k, C, n_out), k, stride,
+                              h_out, w_out)
+
+
+def conv2d_sparse_int8_ref(x_q: torch.Tensor, bitmap: torch.Tensor,
+                           values: torch.Tensor, k: int,
+                           stride: int) -> torch.Tensor:
+    """Bitmap-native int8 conv -> int32 (exact).  bitmap/values: the
+    packed spatial-major conv layout, K padded to %8 with zero-masked
+    tail rows."""
+    C = x_q.shape[3]
+    n_out = bitmap.shape[1]
+    base = torch.zeros((1, n_out), dtype=torch.int32, device=bitmap.device)
+    dense, _ = expand_bitmap_tile(bitmap, values, base, values.shape[0])
+    w_sp = dense[:C * k * k].reshape(k, k, C, n_out)
+    xp, h_out, w_out = pad_same_nhwc(x_q, k, stride)
+    return _conv_taps_spatial(xp, w_sp, k, stride, h_out, w_out)
+
+
+def conv2d_collector_ref(x_q, w_sp, k, stride, eff_scale, eff_bias,
+                         shortcut=None, relu: bool = True) -> torch.Tensor:
+    """Fused conv + Collector: dequant/BN scale, bias, shortcut, ReLU.
+
+    eff_scale and eff_bias broadcast against the NHWC accumulator —
+    ``(c_out,)`` for a per-tensor domain, ``(N, 1, 1, c_out)`` per row;
+    ``shortcut`` as in ``_collector``."""
+    acc = conv2d_int8_ref(x_q, w_sp, k, stride)
+    return _collector(acc, eff_scale, eff_bias, shortcut, relu)
+
+
+def conv2d_sparse_collector_ref(x_q, bitmap, values, k, stride, eff_scale,
+                                eff_bias, shortcut=None,
+                                relu: bool = True) -> torch.Tensor:
+    """Fused bitmap-native conv + Collector (packed weights in)."""
+    acc = conv2d_sparse_int8_ref(x_q, bitmap, values, k, stride)
+    return _collector(acc, eff_scale, eff_bias, shortcut, relu)
+
+
+def _collector(acc: torch.Tensor, eff_scale: torch.Tensor,
+               eff_bias: torch.Tensor, shortcut, relu: bool) -> torch.Tensor:
+    """``shortcut`` is an f32 map (added), or an int8 ``(q, scale[row])``
+    pair — the identity block's dequantized input — fused as
+    ``fma(q, scale, y)``, the rounding of XLA's fused lowering of
+    ``y + q * scale``."""
+    y = fma_f32(acc.float(), eff_scale, eff_bias)
+    if isinstance(shortcut, (tuple, list)):
+        q, s = shortcut
+        y = fma_f32(q.float(), s.float().reshape(-1, 1, 1, 1), y)
+    elif shortcut is not None:
+        y = y + shortcut.float()
+    return torch.clamp_min(y, 0.0) if relu else y

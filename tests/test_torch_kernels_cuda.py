@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``: without a CUDA device every test here skips.  On
+a CUDA host run them with
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_kernels_cuda.py
+
+(``--noconftest``: the suite's conftest imports JAX, which a CUDA host for
+the port need not have.)
+
+The geometry sweep mirrors the JAX package's kernel tests: k in {1, 3, 7}
+x stride in {1, 2}, odd and even maps, channel counts that are and are
+not tile multiples, every shortcut form.  Asserted: int32 accumulators
+equal, ``y`` and the per-image amax equal (both sides round the Collector
+once, ``fmaf`` against ``ref.fma_f32``).
+"""
+import pytest
+import torch
+
+from repro_torch.core.compiled_linear import _compile_leaf_2d
+from repro_torch.kernels import conv_implicit, conv_sparse, ref, sparse_matvec
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(k, stride, c_in, c_out, hw, sc_kind, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    N = 2
+    x = torch.randint(-127, 128, (N, hw, hw, c_in), generator=g,
+                      dtype=torch.int8)
+    w = torch.randn((c_in * k * k, c_out), generator=g)
+    dense = _compile_leaf_2d(w, "int8", 0.8, conv_k=k)
+    packed = _compile_leaf_2d(w, "sparse_cfmm", 0.8, conv_k=k)
+    eff = 1e-3 * torch.rand((N, c_out), generator=g)
+    bias = 0.1 * torch.randn((c_out,), generator=g)
+    h = -(-hw // stride)
+    sc = None
+    if sc_kind == "f32":
+        sc = torch.randn((N, h, h, c_out), generator=g).to(dev)
+    elif sc_kind == "int8":
+        sc = (torch.randint(-127, 128, (N, h, h, c_out), generator=g,
+                            dtype=torch.int8).to(dev),
+              torch.rand((N,), generator=g).to(dev))
+    put = lambda t: t.to(dev).contiguous()
+    return (put(x), put(dense["values"]), put(packed["bitmap"]),
+            put(packed["values"]), put(eff), put(bias), sc)
+
+
+@pytest.mark.parametrize("k,stride,c_in,c_out,hw", [
+    (1, 1, 8, 16, 7), (1, 2, 16, 64, 9), (3, 1, 8, 72, 9), (3, 2, 32, 64, 8),
+    (7, 2, 3, 64, 17), (7, 1, 3, 16, 8), (3, 1, 64, 130, 5)])
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv_kernels_match_plain(dev, k, stride, c_in, c_out, hw, sc_kind,
+                                  relu):
+    x, codes, bitmap, values, eff, bias, sc = _case(k, stride, c_in, c_out,
+                                                    hw, sc_kind, dev)
+    kw = dict(k=k, stride=stride, relu=relu, return_acc=True)
+    for kern, plain, w in (
+            (conv_implicit.conv2d_implicit,
+             conv_implicit.conv2d_implicit_plain, (codes,)),
+            (conv_sparse.conv2d_sparse, conv_sparse.conv2d_sparse_plain,
+             (bitmap, values))):
+        y, amax, acc = kern(x, *w, eff, bias, sc, **kw)
+        y_p, amax_p, acc_p = plain(x, *w, eff, bias, sc, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, acc_p)
+        assert torch.equal(y, y_p)
+        assert torch.equal(amax, amax_p)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 10), (2, 2048, 1000),
+                                   (9, 256, 33), (17, 512, 64)])
+def test_sparse_matvec_matches_plain(dev, M, K, N):
+    g = torch.Generator().manual_seed(M + K + N)
+    leaf = _compile_leaf_2d(torch.randn((K, N), generator=g), "sparse_cfmm",
+                            0.8)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    x, bm, vals = (t.to(dev).contiguous()
+                   for t in (x, leaf["bitmap"], leaf["values"]))
+    out = sparse_matvec.sparse_matvec(x, bm, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.sparse_matvec_ref(x, bm, vals))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, codes, *_ , eff, bias, _ = _case(3, 1, 8, 16, 5, None, dev)
+    with pytest.raises(ValueError):
+        conv_implicit.conv2d_implicit(x, codes.cpu(), eff, bias, k=3,
+                                      stride=1)
+    with pytest.raises(ValueError):
+        conv_implicit.conv2d_implicit(x, codes, eff[:1], bias, k=3,
+                                      stride=1)

@@ -1,0 +1,158 @@
+"""Invariants of the ``repro_torch`` package itself (no JAX involved).
+
+* No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
+  ``repro`` (an AST scan).
+* Entry points run on the card unless the caller asks for the CPU: the
+  engine and the serving driver raise without CUDA.
+* Dispatch goes by the tensor's device alone: a CPU tensor never reaches
+  a kernel, so every launch counter stays 0 and no kernel library loads.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.compiled_linear import ensure_compiled
+from repro_torch.kernels import _cuda, conv_implicit, conv_sparse, sparse_matvec
+from repro_torch.launch import mesh, serve_pipeline
+from repro_torch.models import resnet
+from repro_torch.serving.pipeline import (PipelineEngine, PipelineRequest,
+                                          reference_logits)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+KERNELS = (conv_implicit.KERNEL, conv_sparse.KERNEL, sparse_matvec.KERNEL)
+CFG = resnet.ResNetConfig(width_mult=0.125, num_classes=10, in_hw=16)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These ops are tiny: torch's thread pool only oversubscribes the
+    cores the test workers share."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the entry points do not raise")
+
+
+@pytest.fixture(scope="module")
+def params():
+    return resnet.init(torch.Generator().manual_seed(0), CFG)
+
+
+def test_engine_raises_without_cuda(no_cuda, params):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PipelineEngine(CFG, params, mode="int8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.local_devices("cuda")
+
+
+def test_driver_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_pipeline.main(["--width", "0.125", "--hw", "16",
+                             "--images", "2"])
+
+
+def test_driver_runs_on_cpu_when_asked(capsys):
+    eng = serve_pipeline.main(["--width", "0.125", "--hw", "16",
+                               "--images", "4", "--stages", "2",
+                               "--mode", "sparse_cfmm", "--device", "cpu"])
+    st = eng.stats()
+    assert st["n_stages"] == 2 and st["stage_devices"] == ["cpu", "cpu"]
+    assert "im/s" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mode", ["int8", "sparse_cfmm"])
+def test_cpu_tensors_never_reach_a_kernel(monkeypatch, params, mode):
+    def refuse(self, *args):
+        raise AssertionError(f"{self.symbol} launched for a CPU tensor")
+
+    monkeypatch.setattr(_cuda.CudaKernel, "launch", refuse)
+    for k in KERNELS:
+        monkeypatch.setattr(k, "launches", 0)
+    eng = PipelineEngine(CFG, params, mode=mode, n_stages=2, microbatch=2,
+                         device="cpu")
+    x = np.random.RandomState(0).randn(3, 16, 16, 3).astype(np.float32)
+    out = eng.run_batch(x)
+    assert np.isfinite(out).all() and out.shape == (3, CFG.num_classes)
+    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    assert all(k._fn is None for k in KERNELS)
+
+
+def test_stage_devices_wrap_round_robin():
+    devs = [torch.device("cpu")]
+    assert mesh.pipeline_stage_devices(3, devs) == devs * 3
+    assert mesh.local_devices("cpu") == devs
+
+
+def test_reference_logits_stage_and_microbatch_invariant(params):
+    """Per-row domains: the microbatch split changes no bit."""
+    compiled = ensure_compiled(params, "sparse_cfmm", 0.8)
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        4, 16, 16, 3).astype(np.float32))
+    a = reference_logits(compiled, CFG, x, 1)
+    b = reference_logits(compiled, CFG, x, 4)
+    assert torch.equal(a, b)
+    eng = PipelineEngine(CFG, compiled, mode="sparse_cfmm", n_stages=4,
+                         microbatch=3, device="cpu")
+    reqs = [PipelineRequest(rid=0, images=x[:1].numpy()),
+            PipelineRequest(rid=1, images=x[1:].numpy())]
+    eng.run(reqs)
+    np.testing.assert_array_equal(
+        np.concatenate([r.logits for r in reqs]), a.numpy())
+
+
+def test_kernel_library_name_tracks_its_sources():
+    """The build is keyed by a hash of the sources, so an edited kernel
+    never loads a stale library; every kernel builds from csrc/."""
+    names = {k.lib_path.name for k in KERNELS}
+    assert len(names) == 3
+    for k in KERNELS:
+        assert (_cuda.CSRC / f"{k.source}.cu").exists()
+        assert k.lib_path.parent == _cuda.BUILD_DIR
+
+
+def test_explicit_stage_map_and_cancel_in_flight(params):
+    """An explicit stage map serves the same bits; cancelling a pipe with
+    microbatches in flight returns their tags and leaves it idle."""
+    compiled = ensure_compiled(params, "int8", 0.8)
+    n_blocks = len(CFG.graph().blocks())
+    eng = PipelineEngine(CFG, compiled, mode="int8", microbatch=2,
+                         stage_blocks=((0, 1), tuple(range(2, n_blocks))),
+                         device="cpu")
+    assert eng.stats()["stage_blocks"][0] == [0, 1]
+    x = np.random.RandomState(2).randn(4, 16, 16, 3).astype(np.float32)
+    np.testing.assert_array_equal(
+        eng.run_batch(x),
+        reference_logits(compiled, CFG, torch.from_numpy(x), 2).numpy())
+    pipe = eng.pipe
+    pipe.tick(inject=torch.from_numpy(x[:2]), tag="a")
+    assert pipe.in_flight == 1 and pipe.busy
+    assert pipe.cancel_in_flight() == ["a"]
+    assert not pipe.busy and pipe.in_flight == 0
