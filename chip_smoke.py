@@ -4,22 +4,25 @@
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA host
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (N = 2 images, per-row scales): int32 accumulators
-   equal, ``y`` within 1 ulp, requantized int8 codes off by at most 1 on
-   at most 1e-5 of them; times each (median of CUDA-event timings) beside
-   its bound and, where one PyTorch call computes the same function, that
-   call;
-3. serves full-width ResNet50 (configs/resnet50_compiled.py, seeded
-   random weights) through ``PipelineEngine`` in ``int8`` and
-   ``sparse_cfmm`` at 1 and 2 stages on the one card: three requests of
-   1, 2 and 3 images at microbatch 2.  Checks finite logits, and top-1
-   and max |dlogit| (tolerance 0) of the first request against the same
-   forward on the CPU's plain versions, and that the launch counters
-   show 53 conv launches per microbatch (+1 ``sparse_matvec`` in
-   ``sparse_cfmm``);
+   shapes the served paths give it (N = 2 images, per-row scales): int32
+   accumulators equal, ``y`` within 1 ulp, requantized int8 codes off by
+   at most 1 on at most 1e-5 of them; times each (median of CUDA-event
+   timings of CUDA-graph replays) beside its bound and, where one PyTorch
+   call computes the same function, that call;
+3. serves, through ``PipelineEngine`` on the card, seeded random weights
+   at full width (224 px, 1000 classes): ResNet50 in ``int8`` and
+   ``sparse_cfmm`` at 1 and 2 stages and in ``cfmm`` and ``bitserial`` at
+   1 stage; MobileNetV2 in ``int8`` and ``sparse_cfmm`` and RepVGG-A0
+   (fused) in ``int8``, at 1 and 2 stages.  Each run is three requests of
+   1, 2 and 3 images at microbatch 2.  Checks finite logits, top-1 and
+   max |dlogit| (tolerance 0) of the first request against the same
+   forward on the CPU's plain versions, 1- and 2-stage logits
+   bit-identical, and the launch counters of every kernel (set to 0
+   just before each run, read just after) against the path's count per
+   microbatch;
 4. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
@@ -35,15 +38,48 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate, op/s
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3, bytes/s
-CONVS_PER_FORWARD = 53       # ResNet50: stem + 16 blocks x 3 + 4 projections
 TIMING_REPS = 25
 SERVE_REPS = 5
+
+# kernel launches per microbatch forward, per served (model, mode)
+RESNET50_CONVS = 53          # stem + 16 blocks x 3 + 4 projections
+MOBILENET_V2_CONVS = 35      # stem + 16 expand + 17 project + tail
+MOBILENET_V2_DW = 17         # one depthwise 3x3 per block
+REPVGG_A0_CONVS = 22         # 1 + 2 + 4 + 14 + 1 fused 3x3 blocks
+PER_MICROBATCH = {
+    ("resnet50", "int8"): {"conv_implicit": RESNET50_CONVS},
+    ("resnet50", "sparse_cfmm"): {"conv_sparse": RESNET50_CONVS,
+                                  "sparse_matvec": 1},
+    ("resnet50", "cfmm"): {"conv_implicit": RESNET50_CONVS,
+                           "cfmm_matmul": 1},
+    ("resnet50", "bitserial"): {"conv_implicit": RESNET50_CONVS},
+    ("mobilenet_v2", "int8"): {"conv_implicit": MOBILENET_V2_CONVS,
+                               "conv_depthwise": MOBILENET_V2_DW},
+    ("mobilenet_v2", "sparse_cfmm"): {"conv_sparse": MOBILENET_V2_CONVS,
+                                      "conv_depthwise": MOBILENET_V2_DW,
+                                      "sparse_matvec": 1},
+    ("repvgg_a0", "int8"): {"conv_implicit": REPVGG_A0_CONVS},
+}
+# (model, mode, stage counts served)
+SERVED = [
+    ("resnet50", "int8", (1, 2)),
+    ("resnet50", "sparse_cfmm", (1, 2)),
+    ("resnet50", "cfmm", (1,)),
+    ("resnet50", "bitserial", (1,)),
+    ("mobilenet_v2", "int8", (1, 2)),
+    ("mobilenet_v2", "sparse_cfmm", (1, 2)),
+    ("repvgg_a0", "int8", (1, 2)),
+]
+# the port's kernels as torch.profiler names them
+OUR_KERNELS = ("repro::conv_kernel", "sparse_matvec_kernel",
+               "conv_dw_kernel", "cfmm_matmul_kernel")
 
 
 class CheckFailed(AssertionError):
@@ -107,6 +143,31 @@ def bound_ms(ops: float, nbytes: float) -> tuple:
                                        else "bytes")
 
 
+def fmt(x) -> str:
+    return "null" if x is None else f"{x:.4f}"
+
+
+def compare_conv_outputs(label, acc, acc_p, y, y_p, amax, amax_p):
+    """A conv kernel's outputs against its plain version's: int32
+    accumulators equal, ``y`` within 1 ulp, the requantized int8 codes
+    off by at most 1 on at most 1e-5 of them.  Returns (max |dy|, ulps,
+    code mismatches)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    check(torch.equal(acc, acc_p), f"{label}: int32 accumulators differ")
+    ulps = ulp_distance(y, y_p)
+    dy = float((y - y_p).abs().max())
+    s, s_p = ops.requant_scale(amax), ops.requant_scale(amax_p)
+    q = torch.clamp(torch.round(y / s.reshape(-1, 1, 1, 1)), -127, 127)
+    q_p = torch.clamp(torch.round(y_p / s_p.reshape(-1, 1, 1, 1)), -127, 127)
+    dq = (q - q_p).abs()
+    mism = int((dq > 0).sum())
+    check(ulps <= 1, f"{label}: y off by {ulps} ulp")
+    check(int(dq.max()) <= 1 and mism / q.numel() <= 1e-5,
+          f"{label}: {mism} y_q codes differ (max {int(dq.max())})")
+    return dy, ulps, mism
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -119,11 +180,20 @@ CONV_SHAPES = [
     ("conv4_x_2/b", 3, 1, 256, 256, 14, True, None),
     ("conv5_x_1/c", 1, 1, 512, 2048, 7, True, "f32"),
     ("conv5_x_2/c", 1, 1, 512, 2048, 7, True, "int8"),
+    ("mbv2 stem", 3, 2, 3, 32, 224, True, None),
+    ("mbv2 block14/pj", 1, 1, 576, 96, 14, False, "int8"),
+    ("repvgg stage5_1", 3, 2, 192, 1280, 14, True, None),
 ]
+# MobileNetV2's depthwise 3x3 convs at 224 px: (C, input hw, stride)
+DW_SHAPES = [(32, 112, 1), (96, 112, 2), (144, 56, 1), (144, 56, 2),
+             (192, 28, 1), (192, 28, 2), (384, 14, 1), (576, 14, 1),
+             (576, 14, 2), (960, 7, 1)]
+# the cfmm head: (M, K, N); M = 128 exercises the row tiling
+CFMM_SHAPES = [(2, 2048, 1000), (2, 1280, 1000), (128, 2048, 1000)]
 
 
 def conv_case(spec, dev, gen):
-    """Inputs of one main-path conv: int8 activations, dense and
+    """Inputs of one served conv: int8 activations, dense and
     bitmap-packed weights compiled as the model compiles them, per-row
     dequant rows, bias and the shortcut."""
     from repro_torch.core.compiled_linear import _compile_leaf_2d
@@ -170,7 +240,7 @@ def conv_bytes(c, weight_bytes):
 def check_conv_kernel(kind, c):
     """One conv kernel at one shape against its plain version, on the
     card.  Returns the shape's row for the kernels line."""
-    from repro_torch.kernels import conv_implicit, conv_sparse, ops
+    from repro_torch.kernels import conv_implicit, conv_sparse
     kw = dict(k=c["k"], stride=c["stride"], relu=c["relu"])
     if kind == "conv_implicit":
         args = (c["x"], c["w_sp"], c["eff"], c["bias"], c["shortcut"])
@@ -187,21 +257,8 @@ def check_conv_kernel(kind, c):
         wbytes = c["bitmap"].numel() + c["values"].numel()
     y, amax, acc = kern(*args, return_acc=True, **kw)
     y_p, amax_p, acc_p = plain(*args, return_acc=True, **kw)
-    torch.cuda.synchronize()
-    acc_equal = bool(torch.equal(acc, acc_p))
-    ulps = ulp_distance(y, y_p)
-    dy = float((y - y_p).abs().max())
-    s, s_p = ops.requant_scale(amax), ops.requant_scale(amax_p)
-    q = torch.clamp(torch.round(y / s.reshape(-1, 1, 1, 1)), -127, 127)
-    q_p = torch.clamp(torch.round(y_p / s_p.reshape(-1, 1, 1, 1)), -127, 127)
-    dq = (q - q_p).abs()
-    mism = int((dq > 0).sum())
-    frac = mism / q.numel()
-    check(acc_equal, f"{kind} {c['name']}: int32 accumulators differ")
-    check(ulps <= 1, f"{kind} {c['name']}: y off by {ulps} ulp")
-    check(int(dq.max()) <= 1 and frac <= 1e-5,
-          f"{kind} {c['name']}: {mism} y_q codes differ (max "
-          f"{int(dq.max())})")
+    dy, ulps, mism = compare_conv_outputs(f"{kind} {c['name']}", acc, acc_p,
+                                          y, y_p, amax, amax_p)
     ms = median_ms(lambda: kern(*args, **kw))
     plain_ms = median_ms(lambda: plain(*args, **kw), per_graph=2)
     m_total = c["N"] * c["h_out"] ** 2
@@ -217,15 +274,106 @@ def check_conv_kernel(kind, c):
         check(torch.equal(torch._int_mm(a, b).reshape(acc.shape), acc),
               f"{c['name']}: torch._int_mm disagrees with the kernel")
         library_ms = median_ms(lambda: torch._int_mm(a, b))
-    print(f"[kernel] {kind:13s} {c['name']:12s} acc_equal={acc_equal} "
+    print(f"[kernel] {kind:14s} {c['name']:16s} acc_equal=True "
           f"max|dy|={dy:.3g} ({ulps} ulp) y_q_mismatch={mism} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={b_ms:.4f} ({b_by}) library_ms="
-          f"{'null' if library_ms is None else f'{library_ms:.4f}'}",
+          f"bound_ms={b_ms:.5f} ({b_by}) library_ms={fmt(library_ms)}",
           flush=True)
     return dict(shape=c["name"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, max_abs_err=dy,
                 ulps=ulps, y_q_mismatch=mism)
+
+
+def check_depthwise(C, hw, stride, dev, gen):
+    """The depthwise kernel at one of MobileNetV2's shapes (ReLU, no
+    shortcut, as served) against its plain version; the library yardstick
+    is an f32 grouped ``F.conv2d`` of the int8-valued inputs, whose sums
+    are exact (|acc| < 2**24), so its result equals the accumulators."""
+    from repro_torch.core.quantize import quantize_int7
+    from repro_torch.kernels import conv_depthwise, ref
+    N, k = 2, 3
+    x = torch.randint(-127, 128, (N, hw, hw, C), generator=gen,
+                      dtype=torch.int8)
+    qt = quantize_int7(torch.randn((k * k, C), generator=gen) / 3, axis=-1)
+    x_scale = 0.02 + 0.01 * torch.rand((N,), generator=gen)
+    eff = (x_scale.reshape(-1, 1) * qt.scale.reshape(1, -1)).float()
+    bias = 0.1 * torch.randn((C,), generator=gen)
+    x, w, eff, bias = (t.to(dev).contiguous()
+                       for t in (x, qt.values, eff, bias))
+    args = (x, w, eff, bias, None)
+    kw = dict(k=k, stride=stride, relu=True)
+    label = f"{C}@{hw}/s{stride}"
+    y, amax, acc = conv_depthwise.conv2d_dw(*args, return_acc=True, **kw)
+    y_p, amax_p, acc_p = conv_depthwise.conv2d_dw_plain(*args,
+                                                        return_acc=True, **kw)
+    dy, ulps, mism = compare_conv_outputs(f"conv_depthwise {label}", acc,
+                                          acc_p, y, y_p, amax, amax_p)
+    ms = median_ms(lambda: conv_depthwise.conv2d_dw(*args, **kw))
+    plain_ms = median_ms(lambda: conv_depthwise.conv2d_dw_plain(*args, **kw),
+                         per_graph=2)
+    h_out = -(-hw // stride)
+    n_y = N * h_out * h_out * C
+    b_ms, b_by = bound_ms(2.0 * n_y * k * k,
+                          x.numel() + w.numel() + eff.numel() * 4 + C * 4
+                          + n_y * 4 + N * 4)
+    # yardstick: one grouped f32 conv on the SAME-padded NCHW input
+    xf = ref.pad_same_nhwc(x, k, stride)[0].permute(0, 3, 1, 2).float() \
+        .contiguous()
+    wf = w.float().t().reshape(C, 1, k, k).contiguous()
+    lib = lambda: F.conv2d(xf, wf, stride=stride, groups=C)
+    check(torch.equal(lib().permute(0, 2, 3, 1), acc.float()),
+          f"conv_depthwise {label}: F.conv2d disagrees with the kernel")
+    library_ms = median_ms(lib)
+    print(f"[kernel] conv_depthwise {label:16s} acc_equal=True "
+          f"max|dy|={dy:.3g} ({ulps} ulp) y_q_mismatch={mism} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) library_ms={fmt(library_ms)}",
+          flush=True)
+    return dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, max_abs_err=dy,
+                ulps=ulps, y_q_mismatch=mism)
+
+
+def check_cfmm(M, K, N, dev, gen):
+    """The cfmm head GEMM against its plain version: the int32 product
+    (the served call) equal, and with a scale one f32 rounding equal.
+    The library yardstick is ``torch._int_mm``, with M zero-padded to the
+    32 rows it needs."""
+    from repro_torch.core.compiled_linear import _compile_leaf_2d, act_quant
+    from repro_torch.kernels import cfmm_matmul
+    leaf = _compile_leaf_2d(torch.randn((K, N), generator=gen) / K ** .5,
+                            "cfmm", 0.8)
+    x_q, _ = act_quant(torch.randn((M, K), generator=gen).clamp_min(0),
+                       per_row=True)
+    x_q, codes, scale = (t.to(dev).contiguous()
+                         for t in (x_q, leaf["codes"], leaf["scale"]))
+    out = cfmm_matmul.cfmm_matmul(x_q, codes)
+    out_p = cfmm_matmul.cfmm_matmul_plain(x_q, codes)
+    f = cfmm_matmul.cfmm_matmul(x_q, codes, scale)
+    f_p = cfmm_matmul.cfmm_matmul_plain(x_q, codes, scale)
+    torch.cuda.synchronize()
+    label = f"M={M} K={K} N={N}"
+    check(out.dtype == torch.int32 and torch.equal(out, out_p),
+          f"cfmm_matmul {label}: int32 products differ")
+    ulps = ulp_distance(f, f_p)
+    check(ulps <= 1, f"cfmm_matmul {label}: scaled output off by {ulps} ulp")
+    err = float((f - f_p).abs().max())
+    ms = median_ms(lambda: cfmm_matmul.cfmm_matmul(x_q, codes))
+    plain_ms = median_ms(lambda: cfmm_matmul.cfmm_matmul_plain(x_q, codes),
+                         per_graph=2)
+    b_ms, b_by = bound_ms(2.0 * M * K * N, M * K + K * N + M * N * 4)
+    a = F.pad(x_q, (0, 0, 0, max(0, 32 - M))).contiguous()
+    b = codes.t().contiguous().t()
+    check(torch.equal(torch._int_mm(a, b)[:M], out),
+          f"cfmm_matmul {label}: torch._int_mm disagrees with the kernel")
+    library_ms = median_ms(lambda: torch._int_mm(a, b))
+    print(f"[kernel] cfmm_matmul    {label:16s} equal=True scaled "
+          f"{ulps} ulp kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) library_ms={fmt(library_ms)}",
+          flush=True)
+    return dict(shape=f"head {label}", ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                max_abs_err=err, ulps=ulps)
 
 
 def check_sparse_matvec(dev, gen):
@@ -249,7 +397,7 @@ def check_sparse_matvec(dev, gen):
     nnz = popcount(bm)
     b_ms, b_by = bound_ms(2.0 * M * nnz, x_q.numel() + bm.numel()
                           + vals.numel() + M * N * 4)
-    print(f"[kernel] sparse_matvec M={M} K={K} N={N} equal=True "
+    print(f"[kernel] sparse_matvec  M={M} K={K} N={N} equal=True "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}) library_ms=null", flush=True)
     return dict(shape=f"head M={M} K={K} N={N}", ms=ms, plain_ms=plain_ms,
@@ -258,13 +406,14 @@ def check_sparse_matvec(dev, gen):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the main path — full-width ResNet50 served on the card
+# Phase 3: the served paths, full width, on the card
 # ---------------------------------------------------------------------------
 
-def profile_serve(eng, images, mode):
+def profile_serve(eng, images, label):
     """Where a served batch's time goes: one more run of ``eng`` under
     ``torch.profiler``; prints wall time, the card's busy time (sum of
-    kernel times on the one stream) and the kernels that take most."""
+    kernel times on the one stream) and the kernels that take most.
+    Returns (wall ms, busy ms) or None when the profiler saw no kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.pipeline import PipelineRequest
     reqs = [PipelineRequest(rid=i, images=im) for i, im in enumerate(images)]
@@ -281,51 +430,92 @@ def profile_serve(eng, images, mode):
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
-        print(f"[profile] {mode}: wall {wall_ms:.1f} ms; device time not "
+        print(f"[profile] {label}: wall {wall_ms:.1f} ms; device time not "
               "measured (the profiler saw no kernels)", flush=True)
-        return
+        return None
     ours_ms = sum(e.self_device_time_total for e in events
-                  if "repro::" in e.key or "sparse_matvec_kernel" in e.key
-                  ) / 1e3
-    print(f"[profile] {mode} n_stages=1: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+                  if any(k in e.key for k in OUR_KERNELS)) / 1e3
+    print(f"[profile] {label} n_stages=1: wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%; the port's kernels "
           f"{ours_ms:.2f} ms of it; device launches "
           f"{sum(e.count for e in events)}", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:5d}  {e.key[:90]}", flush=True)
+    return wall_ms, busy_ms
 
 
-def serve_resnet50(kernels, card):
-    from repro_torch.configs.resnet50_compiled import CONFIG as cfg
+def model_config(model):
+    """(config, boxed params) of a served model at full width: seeded
+    random weights; RepVGG's are fused as served."""
+    from repro_torch.configs.mobilenet_v2_compiled import CONFIG as mbv2
+    from repro_torch.configs.repvgg_a0_compiled import CONFIG as repvgg
+    from repro_torch.configs.resnet50_compiled import CONFIG as resnet50
+    cfg = {"resnet50": resnet50, "mobilenet_v2": mbv2,
+           "repvgg_a0": repvgg}[model]
+    params = cfg.init(torch.Generator().manual_seed(0))
+    if model == "repvgg_a0":
+        params = cfg.fuse(params)
+    return cfg, params
+
+
+def graph_launches(cfg, mode) -> dict:
+    """Kernel launches per microbatch forward that the model's graph
+    implies (cross-checks the constants in PER_MICROBATCH)."""
+    nodes = cfg.graph().nodes
+    convs = sum(n.op == "conv" for n in nodes)
+    dws = sum(n.op == "dwconv" for n in nodes)
+    out = {("conv_sparse" if mode == "sparse_cfmm" else "conv_implicit"):
+           convs}
+    if dws:
+        out["conv_depthwise"] = dws
+    head = {"sparse_cfmm": "sparse_matvec", "cfmm": "cfmm_matmul"}.get(mode)
+    if head:
+        out[head] = 1
+    return out
+
+
+def serve(kernels, card):
+    """Serve every (model, mode, stage count) of SERVED; returns
+    {(model, mode, n_stages): result}."""
     from repro_torch.core.compiled_linear import ensure_compiled
-    from repro_torch.models import resnet
     from repro_torch.serving.pipeline import (PipelineEngine,
                                               PipelineRequest,
                                               reference_logits)
-    t0 = time.perf_counter()
-    params = resnet.init(torch.Generator().manual_seed(0), cfg)
-    print(f"[serve] ResNet50 width {cfg.width_mult} hw {cfg.in_hw} classes "
-          f"{cfg.num_classes}: init {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    results = {}
     rng = np.random.RandomState(0)
-    images = [rng.randn(n, cfg.in_hw, cfg.in_hw, 3).astype(np.float32)
+    images = [rng.randn(n, 224, 224, 3).astype(np.float32)
               for n in (1, 2, 3)]
     n_img = sum(len(im) for im in images)
-    results = {}
-    for mode in ("int8", "sparse_cfmm"):
+    models = {}
+    for model, mode, stage_counts in SERVED:
+        if model not in models:
+            t0 = time.perf_counter()
+            models[model] = model_config(model)
+            cfg = models[model][0]
+            check(cfg.in_hw == 224 and cfg.num_classes == 1000
+                  and cfg.width_mult == 1.0, f"{model}: not full width")
+            print(f"[serve] {model} width {cfg.width_mult} hw {cfg.in_hw} "
+                  f"classes {cfg.num_classes}: init "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+        cfg, params = models[model]
+        per_mb = PER_MICROBATCH[(model, mode)]
+        check(per_mb == graph_launches(cfg, mode),
+              f"{model}/{mode}: the graph implies {graph_launches(cfg, mode)} "
+              f"launches per microbatch, not {per_mb}")
         t0 = time.perf_counter()
         compiled = ensure_compiled(params, mode, 0.8)
         t_compile = time.perf_counter() - t0
         t0 = time.perf_counter()
         ref_cpu = reference_logits(compiled, cfg,
                                    torch.from_numpy(images[0]), 2).numpy()
-        t_ref = time.perf_counter() - t0
-        print(f"[serve] {mode}: compile {t_compile:.1f}s, CPU plain "
-              f"forward of request 0 {t_ref:.1f}s", flush=True)
+        print(f"[serve] {model}/{mode}: compile {t_compile:.1f}s, CPU plain "
+              f"forward of request 0 {time.perf_counter() - t0:.1f}s",
+              flush=True)
         by_stages = {}
-        for n_stages in (1, 2):
+        for n_stages in stage_counts:
+            label = f"{model}/{mode}/{n_stages}"
             eng = PipelineEngine(cfg, compiled, mode=mode, n_stages=n_stages,
                                  microbatch=2, device="cuda")
             eng.run([PipelineRequest(rid=i, images=im)
@@ -344,62 +534,64 @@ def serve_resnet50(kernels, card):
             counts = {name: kern.launches for name, kern in kernels.items()}
             dt = float(np.median(times))
             n_mb = eng.stats()["mb_injected"]   # over all SERVE_REPS runs
-            conv_name = "conv_implicit" if mode == "int8" else "conv_sparse"
-            other = "conv_sparse" if mode == "int8" else "conv_implicit"
-            check(counts[conv_name] == CONVS_PER_FORWARD * n_mb,
-                  f"{mode}/{n_stages}: {counts[conv_name]} {conv_name} "
-                  f"launches for {n_mb} microbatches")
-            check(counts[other] == 0, f"{mode}: {other} launched")
-            want_mv = n_mb if mode == "sparse_cfmm" else 0
-            check(counts["sparse_matvec"] == want_mv,
-                  f"{mode}/{n_stages}: {counts['sparse_matvec']} "
-                  f"sparse_matvec launches, want {want_mv}")
+            for name, got in counts.items():
+                want = per_mb.get(name, 0) * n_mb
+                check(got == want, f"{label}: {got} {name} launches for "
+                      f"{n_mb} microbatches, want {want}")
             for r in reqs:
                 check(r.done and r.logits.shape == (len(r.images),
                                                     cfg.num_classes),
-                      f"{mode}: request {r.rid} incomplete")
+                      f"{label}: request {r.rid} incomplete")
                 check(np.isfinite(r.logits).all(),
-                      f"{mode}: non-finite logits")
+                      f"{label}: non-finite logits")
             d_logit = float(np.abs(reqs[0].logits - ref_cpu).max())
             top1 = bool((reqs[0].logits.argmax(-1)
                          == ref_cpu.argmax(-1)).all())
-            check(top1, f"{mode}/{n_stages}: top-1 differs from the CPU "
-                  "plain forward")
+            check(top1, f"{label}: top-1 differs from the CPU plain forward")
             # every op on the path is exact or IEEE-rounded the same way on
             # both devices, so the tolerance is zero
-            check(d_logit == 0.0, f"{mode}/{n_stages}: logits differ from "
-                  f"the CPU plain forward by up to {d_logit:.3g}")
+            check(d_logit == 0.0, f"{label}: logits differ from the CPU "
+                  f"plain forward by up to {d_logit:.3g}")
             by_stages[n_stages] = np.concatenate([r.logits for r in reqs])
             st = eng.stats()
-            print(f"[serve] {mode} n_stages={n_stages} microbatch=2: "
-                  f"{n_img} images in {dt * 1e3:.1f} ms (median of "
-                  f"{SERVE_REPS}; min {min(times) * 1e3:.1f}, max "
-                  f"{max(times) * 1e3:.1f}) = {n_img / dt:.1f} im/s on "
-                  f"{card}; launches {counts}; vs CPU plain: "
-                  f"top1_equal={top1} max|dlogit|={d_logit:.3g}; bubble "
-                  f"{st['bubble_fraction']:.2f}", flush=True)
-            results[(mode, n_stages)] = dict(counts=counts, im_s=n_img / dt,
-                                             d_logit=d_logit)
+            print(f"[serve] {label} microbatch=2: {n_img} images in "
+                  f"{dt * 1e3:.1f} ms (median of {SERVE_REPS}; min "
+                  f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}) = "
+                  f"{n_img / dt:.1f} im/s on {card}; launches {counts}; vs "
+                  f"CPU plain: top1_equal={top1} max|dlogit|={d_logit:.3g}; "
+                  f"bubble {st['bubble_fraction']:.2f}", flush=True)
+            res = dict(counts=counts, n_microbatches=n_mb,
+                       im_s=n_img / dt, d_logit=d_logit)
             if n_stages == 1:
-                profile_serve(eng, images, mode)
-        check(np.array_equal(by_stages[1], by_stages[2]),
-              f"{mode}: 1-stage and 2-stage logits differ")
+                prof = profile_serve(eng, images, f"{model}/{mode}")
+                if prof is not None:
+                    res["profile_wall_ms"], res["device_busy_ms"] = prof
+            results[(model, mode, n_stages)] = res
+        if len(by_stages) == 2:
+            check(np.array_equal(by_stages[1], by_stages[2]),
+                  f"{model}/{mode}: 1-stage and 2-stage logits differ")
     return results
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from repro_torch.kernels import (_cuda, conv_implicit, conv_sparse,
+    from repro_torch.kernels import (_cuda, cfmm_matmul, conv_depthwise,
+                                     conv_implicit, conv_sparse,
                                      sparse_matvec)
     card = gpu_identity()
     print(f"[card] {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} | "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}",
           flush=True)
     kernels = {"conv_implicit": conv_implicit.KERNEL,
                "conv_sparse": conv_sparse.KERNEL,
-               "sparse_matvec": sparse_matvec.KERNEL}
+               "sparse_matvec": sparse_matvec.KERNEL,
+               "conv_depthwise": conv_depthwise.KERNEL,
+               "cfmm_matmul": cfmm_matmul.KERNEL}
     t0 = time.perf_counter()
     logs = _cuda.build_all(kernels.values())
     print(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f}s",
@@ -414,11 +606,16 @@ def main() -> int:
     rows = {"conv_implicit": [], "conv_sparse": []}
     for spec in CONV_SHAPES:
         c = conv_case(spec, dev, gen)
-        for kind in rows:
+        for kind in ("conv_implicit", "conv_sparse"):
             rows[kind].append(check_conv_kernel(kind, c))
     rows["sparse_matvec"] = [check_sparse_matvec(dev, gen)]
+    rows["conv_depthwise"] = [check_depthwise(*s, dev, gen)
+                              for s in DW_SHAPES]
+    rows["cfmm_matmul"] = [check_cfmm(*s, dev, gen) for s in CFMM_SHAPES]
+    print(f"[time] kernel phase done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
 
-    served = serve_resnet50(kernels, card)
+    served = serve(kernels, card)
 
     meta = {
         "conv_implicit": ("src/repro_torch/csrc/conv_implicit.cu",
@@ -427,6 +624,10 @@ def main() -> int:
                         "src/repro/kernels/conv_sparse.py:90"),
         "sparse_matvec": ("src/repro_torch/csrc/sparse_matvec.cu",
                           "src/repro/kernels/sparse_matvec.py:55"),
+        "conv_depthwise": ("src/repro_torch/csrc/conv_depthwise.cu",
+                           "src/repro/kernels/conv_depthwise.py:80"),
+        "cfmm_matmul": ("src/repro_torch/csrc/cfmm_matmul.cu",
+                        "src/repro/kernels/cfmm_matmul.py:44"),
     }
     entries = []
     for name, shape_rows in rows.items():
@@ -434,20 +635,35 @@ def main() -> int:
                      if r["bound_by"] == "operations")
         bytes_ms = sum(r["bound_ms"] for r in shape_rows
                        if r["bound_by"] == "bytes")
+        lib_rows = [r for r in shape_rows if r["library_ms"] is not None]
+        by_path = {f"{m}/{mode}/{n}": v["counts"][name]
+                   for (m, mode, n), v in served.items()
+                   if v["counts"][name]}
         entries.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": sum(v["counts"][name] for v in served.values()),
+            "launches": sum(by_path.values()),
             "max_abs_err": max(r["max_abs_err"] for r in shape_rows),
             "ms": sum(r["ms"] for r in shape_rows),
             "plain_ms": sum(r["plain_ms"] for r in shape_rows),
             "bound_ms": sum(r["bound_ms"] for r in shape_rows),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
-            "status": (f"built, launched on the main path, equal to its "
+            # summed over the shapes that have one library call; ms_there
+            # is the kernel's own time summed over the same shapes
+            "library_ms": (sum(r["library_ms"] for r in lib_rows)
+                           if lib_rows else None),
+            "library_shapes": [r["shape"] for r in lib_rows],
+            "ms_at_library_shapes": (sum(r["ms"] for r in lib_rows)
+                                     if lib_rows else None),
+            "launches_by_path": by_path,
+            "status": (f"built, launched on the served paths, equal to its "
                        f"plain version at {len(shape_rows)} shape(s)"),
             "shapes": shape_rows,
         })
+    serve_line = [{"path": f"{m}/{mode}", "n_stages": n, **v}
+                  for (m, mode, n), v in served.items()]
+    print(json.dumps({"serve": serve_line}), flush=True)
+    print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,26 @@
 """CompiledLinear — constant-parameter compilation and the compiled
-forward of linear and conv leaves (ports ``repro/core/compiled_linear.py``
-for the ``int8`` and ``sparse_cfmm`` serve modes).
+forward of linear and conv leaves (ports ``repro/core/compiled_linear.py``).
 
 Per serve mode a compiled weight leaf is:
 
   int8         {'values': int8, 'scale'}    W-INT7 A-INT8, int8 products
+  cfmm         {'codes': int8, 'scale'}     same storage; the head runs
+               the cfmm_matmul kernel (kernels/cfmm_matmul.py)
   sparse_cfmm  {'bitmap': uint8, 'values': int8, 'scale'}
                bitmap-packed constant sparsity, (1-s)*8 + 1 bits/param;
                K pads up to a multiple of 8 with masked all-zero rows
+  bitserial    {'bs_codes': int8, 'scale'}  the head is the bit-plane
+               matmul (core/cfmm.py ``bitserial_matmul``)
 
 Every conv leaf is stored in the conv kernels' spatial-major tap layout
 (row = tap*c_in + c) and carries its ``ConvGeom``; the layout permute
-runs here, once.  The bytes are equal to the JAX package's for the same
-float weights (tested).  The other modes (``dense``, ``cfmm``,
-``bitserial``) and depthwise leaves belong to later port slices.
+runs here, once.  Conv leaves keyed ``codes``/``bs_codes`` feed the dense
+conv kernel like ``values``: as int8 operands they are the same codes.
+Depthwise leaves store dense tap-major ``(k*k, C)`` int8 ``values`` plus
+a per-channel scale in every serve mode (K = k*k rows: a bitmap saves
+nothing there).  The bytes are equal to the JAX package's for the same
+float weights (tested).  The ``dense`` mode needs the dense training
+forward, which is not ported: it raises.
 """
 from __future__ import annotations
 
@@ -22,12 +29,13 @@ import dataclasses
 import torch
 
 from repro_torch import nn
+from repro_torch.core import cfmm
 from repro_torch.core.quantize import INT8_ACT_MAX, quantize_int7
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.bitmap import expand_bitmap_tile
 
-SERVE_MODES = ("int8", "sparse_cfmm")
+SERVE_MODES = ("int8", "cfmm", "sparse_cfmm", "bitserial")
 
 
 def act_quant(x: torch.Tensor, *, per_row: bool = False):
@@ -126,21 +134,22 @@ def apply_linear(w: dict, x: torch.Tensor,
 
     ``per_row=True`` quantizes each flattened input row under its own
     INT8 domain — the compiled ResNet head uses it so a request's logits
-    never depend on which rows share its microbatch.  The int8 product
-    is exact: int8 x int8 summed in float64 (kernels/ref.py), on the CPU
-    and on the card alike.
+    never depend on which rows share its microbatch.  Every mode's int32
+    product is exact: the sparse and cfmm kernels sum in int32, and the
+    plain int8 and bit-serial products sum in float64 (kernels/ref.py),
+    on the CPU and on the card alike.
     """
     assert "geom" not in w, "compiled conv leaf: use apply_conv"
     lead = tuple(x.shape[:-1])
     x_q, s_x = act_quant(x.reshape(-1, x.shape[-1]), per_row=per_row)
     if "bitmap" in w:                              # sparse_cfmm
         acc = ops.sparse_cfmm_matmul(x_q, w["bitmap"], w["values"])
-    elif "values" in w:                            # int8
+    elif "bs_codes" in w:                          # bitserial
+        acc = cfmm.bitserial_matmul(x_q, w["bs_codes"])
+    elif "codes" in w:                             # cfmm
+        acc = ops.cfmm_matmul(x_q, w["codes"])
+    else:                                          # int8
         acc = kref.int8_matmul_ref(x_q, w["values"])
-    else:
-        raise NotImplementedError(
-            f"weight leaf {sorted(w)}: the cfmm and bitserial serve modes "
-            "belong to a later port slice")
     s_row = s_x.reshape(-1, 1) if per_row else s_x
     y = acc.float() * (s_row * w["scale"].reshape(1, -1))
     return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
@@ -151,16 +160,22 @@ def apply_conv(w: dict, x_q: torch.Tensor, x_scale, *, gamma=None,
                quant_out: bool = False):
     """Fused conv forward for a compiled conv leaf (carries its geometry).
 
-    Dispatch rides the leaf's storage keys: ``bitmap`` leaves hand the
-    packed pair to the bitmap-native sparse conv kernel; int8 leaves feed
-    the dense implicit-GEMM kernel.  Returns f32 NHWC, or (int8, scale)
-    with quant_out (see kernels.ops.conv2d).
+    Dispatch rides the leaf: depthwise leaves go to the depthwise
+    kernel; ``bitmap`` leaves hand the packed pair to the bitmap-native
+    sparse conv kernel; ``values``/``codes``/``bs_codes`` leaves feed the
+    dense implicit-GEMM kernel.  Returns f32 NHWC, or (int8, scale) with
+    quant_out (see kernels.ops.conv2d).
     """
     geom = w["geom"]
     if geom.dw:
-        raise NotImplementedError("depthwise convs belong to the "
-                                  "mobilenet_v2 port slice")
-    codes = (w["bitmap"], w["values"]) if "bitmap" in w else w["values"]
+        return ops.conv2d_dw(x_q, w["values"], geom.k, geom.stride,
+                             x_scale=x_scale, w_scale=w["scale"],
+                             gamma=gamma, beta=beta, shortcut=shortcut,
+                             relu=relu, quant_out=quant_out)
+    if "bitmap" in w:
+        codes = (w["bitmap"], w["values"])
+    else:
+        codes = w.get("values", w.get("codes", w.get("bs_codes")))
     return ops.conv2d(x_q, codes, geom.k, geom.stride, x_scale=x_scale,
                       w_scale=w["scale"], gamma=gamma, beta=beta,
                       shortcut=shortcut, relu=relu, quant_out=quant_out)
@@ -177,14 +192,19 @@ def _leaf_axes(kind: str, in_ax, out_ax):
 
 
 def _compile_leaf(p: nn.Param, mode: str, sparsity: float) -> dict:
-    if nn.dwconv_geom_of(p.kind) is not None:
-        raise NotImplementedError("depthwise leaves belong to the "
-                                  "mobilenet_v2 port slice")
     w = p.value.float()
     if w.ndim != 2:
         raise NotImplementedError(f"stacked leaves {tuple(w.shape)} belong "
                                   "to the LM port slice")
     in_ax, out_ax = p.axes[-2], p.axes[-1]
+    dw = nn.dwconv_geom_of(p.kind)
+    if dw is not None:           # depthwise: dense tap-major in every mode
+        k, stride = dw
+        assert w.shape[0] == k * k, (tuple(w.shape), p.kind)
+        qt = quantize_int7(w, axis=-1)             # per-channel scale
+        return {"values": nn.Param(qt.values, (in_ax, out_ax)),
+                "scale": nn.Param(qt.scale.reshape(1, -1), (None, out_ax)),
+                "geom": ConvGeom(k, stride, 1, dw=True)}
     geom = nn.conv_geom_of(p.kind)
     out = _compile_leaf_2d(w, mode, sparsity,
                            geom[0] if geom is not None else None)
@@ -216,7 +236,8 @@ def _compile_leaf_2d(w: torch.Tensor, mode: str, sparsity: float,
     codes = qt.values
     if conv_k is not None:       # the one conv weight-layout shuffle
         codes = kref.to_spatial_major(codes, conv_k, K // (conv_k * conv_k))
-    return {"values": codes.contiguous(), "scale": qt.scale.reshape(1, -1)}
+    key = {"int8": "values", "bitserial": "bs_codes"}.get(mode, "codes")
+    return {key: codes.contiguous(), "scale": qt.scale.reshape(1, -1)}
 
 
 def compile_params(params, mode: str = "sparse_cfmm", sparsity: float = 0.8):
@@ -227,8 +248,8 @@ def compile_params(params, mode: str = "sparse_cfmm", sparsity: float = 0.8):
     """
     if mode not in SERVE_MODES:
         raise NotImplementedError(
-            f"serve mode {mode!r} belongs to a later port slice; this "
-            f"slice compiles {SERVE_MODES}")
+            f"serve mode {mode!r} is not ported (the dense mode needs the "
+            f"dense training forward); the port compiles {SERVE_MODES}")
 
     def visit(p):
         if isinstance(p, nn.Param) and nn.compilable(p.kind) \

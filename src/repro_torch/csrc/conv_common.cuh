@@ -2,7 +2,8 @@
 // shared by the dense (conv_implicit.cu) and bitmap-packed
 // (conv_sparse.cu) kernels: one template on the weight source, so the MAC
 // loop and the epilogue are the same code and the two kernels agree to
-// the bit on the same (expanded) codes.
+// the bit on the same (expanded) codes.  The epilogue (``collector``,
+// ``amax_reduce``) is also the depthwise kernel's (conv_depthwise.cu).
 //
 // Work decomposition.  A block computes a BM x BN tile of output pixels x
 // output channels of ONE image (blockIdx.z), so the per-image dequant row
@@ -76,6 +77,33 @@ __device__ __forceinline__ int im2col_byte(const ConvArgs& a,
   int iw = ow * a.stride + dx - a.pad_left;
   if (ih < 0 || ih >= a.H || iw < 0 || iw >= a.W) return 0;
   return x_img[((size_t)ih * a.W + iw) * a.C + c];
+}
+
+// The Collector of one output o = (image img, pixel, channel n):
+// y = fmaf(float(acc), eff_scale[img][n], eff_bias[n]), the shortcut (an
+// f32 add, or fmaf(float(q), sc_scale[img], y) for an int8 one), ReLU.
+// Shared by every conv kernel (conv_implicit, conv_sparse,
+// conv_depthwise), so all of them round alike.
+__device__ __forceinline__ float collector(const ConvArgs& a, int acc,
+                                           int img, size_t o, int n) {
+  float y = fmaf(__int2float_rn(acc), a.eff_scale[(size_t)img * a.n_out + n],
+                 a.eff_bias[n]);
+  if (a.shortcut) y += a.shortcut[o];
+  else if (a.sc_q) y = fmaf((float)a.sc_q[o], a.sc_scale[img], y);
+  if (a.relu) y = fmaxf(y, 0.f);
+  return y;
+}
+
+// Fold a thread's max|y| into the image's amax: a warp max, then one
+// atomicMax on the bits of the non-negative float per warp.  Every lane
+// of the warp must call it, for one image.
+__device__ __forceinline__ void amax_reduce(const ConvArgs& a, int img,
+                                            float local_max) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    local_max = fmaxf(local_max, __shfl_xor_sync(0xffffffffu, local_max, off));
+  if ((threadIdx.x & 31) == 0)
+    atomicMax(a.amax + img, __float_as_uint(local_max));
 }
 
 template <bool SPARSE>
@@ -201,20 +229,13 @@ conv_kernel(ConvArgs a) {
       int n = n0 + tx + 16 * j;
       if (n >= a.n_out) continue;
       size_t o = ((size_t)img * m_img + m) * a.n_out + n;
-      float y = fmaf(__int2float_rn(acc[i][j]),
-                     a.eff_scale[(size_t)img * a.n_out + n], a.eff_bias[n]);
-      if (a.shortcut) y += a.shortcut[o];
-      else if (a.sc_q) y = fmaf((float)a.sc_q[o], a.sc_scale[img], y);
-      if (a.relu) y = fmaxf(y, 0.f);
+      float y = collector(a, acc[i][j], img, o, n);
       a.y[o] = y;
       if (a.acc_out) a.acc_out[o] = acc[i][j];
       local_max = fmaxf(local_max, fabsf(y));
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    local_max = fmaxf(local_max, __shfl_xor_sync(0xffffffffu, local_max, off));
-  if ((tid & 31) == 0) atomicMax(a.amax + img, __float_as_uint(local_max));
+  amax_reduce(a, img, local_max);
 }
 
 template <bool SPARSE>

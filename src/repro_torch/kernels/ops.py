@@ -1,5 +1,6 @@
-"""The conv and sparse-matmul ops of the main path (ports the
-``conv2d`` and ``sparse_cfmm_matmul`` parts of ``repro/kernels/ops.py``).
+"""The conv and matmul ops of the CNN path (ports the ``conv2d``,
+``conv2d_dw``, ``cfmm_matmul`` and ``sparse_cfmm_matmul`` parts of
+``repro/kernels/ops.py``).
 
 Each op prepares its kernel's arguments and calls the kernel's wrapper,
 which dispatches by the tensor's device alone: the plain PyTorch version
@@ -16,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.cfmm_matmul import cfmm_matmul as _cfmm_kernel
+from repro_torch.kernels.conv_depthwise import conv2d_dw as _dw_kernel
 from repro_torch.kernels.conv_implicit import conv2d_implicit
 from repro_torch.kernels.conv_sparse import conv2d_sparse
 from repro_torch.kernels.sparse_matvec import sparse_matvec
@@ -27,6 +30,13 @@ def requant_scale(amax: torch.Tensor) -> torch.Tensor:
     """``max(amax, 1e-12) / 127`` as the jitted JAX lowering computes it."""
     inv = torch.tensor(INV_127, dtype=torch.float32, device=amax.device)
     return torch.clamp_min(amax, 1e-12) * inv
+
+
+def cfmm_matmul(x_q: torch.Tensor, codes: torch.Tensor,
+                scale: torch.Tensor | None = None) -> torch.Tensor:
+    """int8 (M, K) @ int8 (K, N) -> int32, exact (or f32 with the
+    per-column scale applied once)."""
+    return _cfmm_kernel(x_q.contiguous(), codes.contiguous(), scale)
 
 
 def sparse_cfmm_matmul(x_q: torch.Tensor, bitmap: torch.Tensor,
@@ -67,8 +77,7 @@ def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,
     quant_out:  round the output back to int8 -> (y_q int8, y_scale);
                 otherwise returns f32 (N, h_out, w_out, c_out).
     """
-    N, _, _, C = x_q.shape
-    dev = x_q.device
+    C = x_q.shape[3]
     packed = isinstance(codes, (tuple, list))
     if packed:
         bitmap, values = codes
@@ -78,13 +87,49 @@ def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,
     else:
         n_out = codes.shape[1]
         assert codes.shape[0] == C * k * k, (codes.shape, C, k)
+    eff_rows, eff_bias, sc, per_row = _collector_args(
+        x_q, x_scale, w_scale, gamma, beta, shortcut, n_out)
+    x_q = x_q.contiguous()
+    if packed:
+        y, amax_rows = conv2d_sparse(x_q, bitmap, values, eff_rows, eff_bias,
+                                     sc, k=k, stride=stride, relu=relu)
+    else:
+        y, amax_rows = conv2d_implicit(x_q, codes.contiguous(), eff_rows,
+                                       eff_bias, sc, k=k, stride=stride,
+                                       relu=relu)
+    return _requant(y, amax_rows, per_row) if quant_out else y
+
+
+def conv2d_dw(x_q: torch.Tensor, values: torch.Tensor, k: int, stride: int,
+              *, x_scale, w_scale: torch.Tensor,
+              gamma: torch.Tensor | None = None,
+              beta: torch.Tensor | None = None, shortcut=None,
+              relu: bool = True, quant_out: bool = False):
+    """Fused depthwise int8 SAME conv + Collector: the depthwise sibling
+    of ``conv2d``, with the same arguments, Collector and requant tail.
+    ``values`` is the compiled tap-major ``(k*k, C)`` int8 weight."""
+    C = x_q.shape[3]
+    assert tuple(values.shape) == (k * k, C), (tuple(values.shape), k, C)
+    eff_rows, eff_bias, sc, per_row = _collector_args(
+        x_q, x_scale, w_scale, gamma, beta, shortcut, C)
+    y, amax_rows = _dw_kernel(x_q.contiguous(), values.contiguous(),
+                              eff_rows, eff_bias, sc, k=k, stride=stride,
+                              relu=relu)
+    return _requant(y, amax_rows, per_row) if quant_out else y
+
+
+def _collector_args(x_q, x_scale, w_scale, gamma, beta, shortcut,
+                    n_out: int):
+    """The Collector operands of a conv launch: one dequant * BN row per
+    image ``(N, n_out)`` (per-row domains index it by image, a per-tensor
+    scalar repeats the same row), the bias, the shortcut (an f32 map, or
+    an int8 ``(codes, scale[row])`` pair), and whether x_scale is
+    per-row."""
+    N, dev = x_q.shape[0], x_q.device
     x_s = torch.as_tensor(x_scale, dtype=torch.float32, device=dev)
-    per_row = x_s.ndim >= 1
     col_scale = w_scale.reshape(-1).float()
     if gamma is not None:
         col_scale = col_scale * gamma.float()
-    # one dequant row per image: per-row domains index it by image, a
-    # per-tensor scalar repeats the same row
     eff_rows = (x_s.reshape(-1, 1) * col_scale.reshape(1, -1)).expand(
         N, n_out).contiguous()
     eff_bias = (torch.zeros((n_out,), dtype=torch.float32, device=dev)
@@ -95,18 +140,12 @@ def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,
         sc = (q_sc.contiguous(), s_sc.reshape(-1).expand(N).contiguous())
     else:
         sc = None if shortcut is None else shortcut.float().contiguous()
-    x_q = x_q.contiguous()
-    if packed:
-        y, amax_rows = conv2d_sparse(x_q, bitmap, values, eff_rows, eff_bias,
-                                     sc, k=k, stride=stride, relu=relu)
-    else:
-        y, amax_rows = conv2d_implicit(x_q, codes.contiguous(), eff_rows,
-                                       eff_bias, sc, k=k, stride=stride,
-                                       relu=relu)
-    if not quant_out:
-        return y
-    # the requant tail: activations go straight back to int8; under
-    # per-row domains s_y is (N,) — one independent scale per image
+    return eff_rows, eff_bias, sc, x_s.ndim >= 1
+
+
+def _requant(y: torch.Tensor, amax_rows: torch.Tensor, per_row: bool):
+    """The requant tail: activations go straight back to int8; under
+    per-row domains s_y is (N,) — one independent scale per image."""
     s_y = requant_scale(amax_rows if per_row else torch.amax(amax_rows))
     s_b = s_y.reshape(-1, 1, 1, 1) if per_row else s_y
     y_q = torch.clamp(torch.round(y / s_b), -127, 127).to(torch.int8)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the main-path kernels (ports the main-path
+"""Plain PyTorch versions of the ported kernels (ports the CNN-path
 oracles of ``repro/kernels/ref.py``).
 
 These are what a kernel wrapper runs for a CPU tensor, and what the CUDA
@@ -46,6 +46,13 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def int8_matmul_ref(x_q: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """int8 (M, K) x int8 (K, N) -> int32 (exact)."""
     return (x_q.double() @ codes.double()).to(torch.int32)
+
+
+def cfmm_matmul_ref(x_q: torch.Tensor, codes: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> f32: the exact int32 product times
+    the per-column ``scale``, rounded once."""
+    return int8_matmul_ref(x_q, codes).float() * scale
 
 
 def sparse_matvec_ref(x_q: torch.Tensor, bitmap: torch.Tensor,
@@ -165,6 +172,39 @@ def conv2d_sparse_collector_ref(x_q, bitmap, values, k, stride, eff_scale,
                                 relu: bool = True) -> torch.Tensor:
     """Fused bitmap-native conv + Collector (packed weights in)."""
     acc = conv2d_sparse_int8_ref(x_q, bitmap, values, k, stride)
+    return _collector(acc, eff_scale, eff_bias, shortcut, relu)
+
+
+def _dw_taps(xp: torch.Tensor, w_tap: torch.Tensor, k: int, stride: int,
+             h_out: int, w_out: int) -> torch.Tensor:
+    """Tap-loop depthwise int8 conv on a padded image -> int32 NHWC.
+
+    xp: (N, Hp, Wp, C) int8; w_tap: (k*k, C) int8 tap-major — each tap
+    adds an elementwise (per-channel) product, in int32 (exact: at most
+    k*k*127*127 in magnitude)."""
+    C = w_tap.shape[-1]
+    acc = torch.zeros((xp.shape[0], h_out, w_out, C), dtype=torch.int32,
+                      device=xp.device)
+    for dy in range(k):
+        for dx in range(k):
+            sl = _shift_slice(xp, dy, dx, h_out, w_out, stride)
+            acc += sl.to(torch.int32) * w_tap[dy * k + dx].to(torch.int32)
+    return acc
+
+
+def conv2d_dw_int8_ref(x_q: torch.Tensor, w_tap: torch.Tensor, k: int,
+                       stride: int) -> torch.Tensor:
+    """Depthwise int8 NHWC SAME conv -> int32 (exact)."""
+    assert x_q.shape[-1] == w_tap.shape[-1], (x_q.shape, w_tap.shape)
+    xp, h_out, w_out = pad_same_nhwc(x_q, k, stride)
+    return _dw_taps(xp, w_tap, k, stride, h_out, w_out)
+
+
+def conv2d_dw_collector_ref(x_q, w_tap, k, stride, eff_scale, eff_bias,
+                            shortcut=None, relu: bool = True) -> torch.Tensor:
+    """Fused depthwise conv + Collector: the dense conv's epilogue
+    (``_collector``), so the two conv families round alike."""
+    acc = conv2d_dw_int8_ref(x_q, w_tap, k, stride)
     return _collector(acc, eff_scale, eff_bias, shortcut, relu)
 
 

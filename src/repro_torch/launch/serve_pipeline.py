@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import partition
+from repro_torch.core.compiled_linear import SERVE_MODES
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import resnet
 from repro_torch.serving.pipeline import PipelineEngine, PipelineRequest
@@ -28,7 +29,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=float, default=0.25)
     ap.add_argument("--hw", type=int, default=32)
-    ap.add_argument("--mode", default="int8", choices=("int8", "sparse_cfmm"))
+    ap.add_argument("--mode", default="int8", choices=SERVE_MODES)
     ap.add_argument("--sparsity", type=float, default=0.8)
     ap.add_argument("--stages", type=int, default=2)
     ap.add_argument("--microbatch", type=int, default=2)

@@ -13,8 +13,9 @@ epilogue argument (the paper's Collector does the add, SS II-D.4).
 after a node whose value is a quantization-domain pair and the ONLY live
 value.  The trailing conv-free segment is the head unit (``block_id`` -1).
 
-This slice ports the ResNet ops; ``dwconv`` (mobilenet_v2) and
-activation-sparsity profiling belong to later slices.
+Every op is ported; a ``dwconv`` node runs the depthwise kernel through
+``apply_conv`` (its leaf carries ``ConvGeom(dw=True)``).  Activation-
+sparsity profiling belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -334,10 +335,11 @@ def _head_pool(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Dequantized:
     """A ``dequant`` node's value, kept as its ``(int8, scale[row])``
-    pair.  Its consumer on the ResNet path is the c-conv's identity
-    shortcut, which the conv epilogue adds as ``fma(q, scale, y)`` — the
-    rounding XLA's fused lowering gives ``y + q * scale`` — and which
-    reads int8 codes instead of an f32 map."""
+    pair.  Its consumer is an identity shortcut (ResNet's c-conv,
+    MobileNetV2's projection), which the conv epilogue adds as
+    ``fma(q, scale, y)`` — the rounding XLA's fused lowering gives
+    ``y + q * scale`` — and which reads int8 codes instead of an f32
+    map."""
 
     q: torch.Tensor
     s: torch.Tensor
@@ -372,7 +374,7 @@ def _unit_fn(nodes):
                 out = act_quant(_f32(val(n.inputs[0])), per_row=True)
             elif n.op == "dequant":
                 out = Dequantized(*val(n.inputs[0]))
-            elif n.op == "conv":
+            elif n.op in ("conv", "dwconv"):
                 q, s = val(n.inputs[0])
                 sc = None if n.shortcut is None else val(n.shortcut)
                 if isinstance(sc, Dequantized):
@@ -381,9 +383,6 @@ def _unit_fn(nodes):
                 out = apply_conv(w["w"], q, s, gamma=w["scale"],
                                  beta=w["bias"], shortcut=sc, relu=n.relu,
                                  quant_out=n.quant_out)
-            elif n.op == "dwconv":
-                raise NotImplementedError("dwconv nodes belong to the "
-                                          "mobilenet_v2 port slice")
             elif n.op == "pool":
                 out = _max_pool_same(_f32(val(n.inputs[0])), n.k, n.stride)
             elif n.op == "head":

@@ -99,6 +99,11 @@ def conv_geom_of(kind) -> tuple | None:
     return None
 
 
+def dwconv_kind(k: int, stride: int) -> str:
+    """Param kind for a depthwise conv weight (groups == channels)."""
+    return f"dwconv{k}s{stride}"
+
+
 def dwconv_geom_of(kind) -> tuple | None:
     """(k, stride) of a depthwise conv kind, or None otherwise."""
     if isinstance(kind, str) and kind.startswith("dwconv"):
@@ -118,6 +123,13 @@ def conv_param(gen, c_in, c_out, k, stride, axes):
     """A conv weight, stored flat (c_in*k*k, c_out) in im2col patch order
     (channel-major), carrying its (k, stride) geometry in the kind."""
     return param(gen, (c_in * k * k, c_out), axes, kind=conv_kind(k, stride))
+
+
+def dwconv_param(gen, c, k, stride, axes):
+    """A depthwise conv weight, stored (k*k, c) in tap-major row order —
+    already the depthwise kernel's layout (one (c,) weight row per
+    receptive-field tap), so compilation needs no layout shuffle."""
+    return param(gen, (k * k, c), axes, kind=dwconv_kind(k, stride))
 
 
 def unbox(tree: PyTree) -> PyTree:

@@ -94,7 +94,8 @@ class PipelineEngine:
     """Persistent pipeline-parallel serving of a compiled conv-DAG.
 
     ``cfg`` exposes ``graph()`` (a ``models.graph.Graph``), ``apply`` and
-    ``num_classes`` (``ResNetConfig``).  Stages go round-robin over the
+    ``num_classes``: ``ResNetConfig``, ``MobileNetV2Config``, or
+    ``RepVGGConfig`` with fused params (``cfg.fuse``).  Stages go round-robin over the
     devices ``device`` names: every visible card for ``"cuda"``."""
 
     def __init__(self, cfg, params, *, mode: str = "int8",

@@ -251,3 +251,102 @@ def test_fma_f32_rounds_once():
         errs = [abs(Fraction(float(v)) - exact) for v in cands]
         best = min(errs)
         assert abs(Fraction(float(got[i])) - exact) == best, i
+
+
+# ---------------------------------------------------------------------------
+# Depthwise conv: ``ops.conv2d_dw`` against the JAX package's
+# ---------------------------------------------------------------------------
+
+DW_GEOMS = [(s, c) for s in (1, 2) for c in (8, 24, 40)]
+DW_VARIANTS = list(itertools.product((None, "f32"), (True, False),
+                                     ("scalar", "row")))
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_case(stride, C):
+    """Inputs for one depthwise (stride, C): the tap-major (9, C) weight
+    compiled as ``compile_params`` compiles a ``dwconv`` leaf."""
+    from repro_torch import nn as tnn
+    rng = np.random.RandomState(1000 + 10 * C + stride)
+    w = (rng.randn(9, C) / 3.0).astype(np.float32)
+    leaf = tcl.compile_params({"w": tnn.Param(torch.from_numpy(w),
+                                              ("conv_in", "conv_out"),
+                                              tnn.dwconv_kind(3, stride))},
+                              mode="int8")["w"]
+    assert leaf["geom"] == tcl.ConvGeom(3, stride, 1, dw=True)
+    h_out = -(-HW // stride)
+    return dict(
+        x=rng.randint(-127, 128, (N, HW, HW, C)).astype(np.int8),
+        values=leaf["values"].value.numpy(),
+        scale_w=leaf["scale"].value.numpy(),
+        s_scalar=np.float32(0.031),
+        s_row=(0.01 + 0.02 * rng.rand(N)).astype(np.float32),
+        gamma=(0.5 + rng.rand(C)).astype(np.float32),
+        beta=(0.2 * rng.randn(C)).astype(np.float32),
+        sc_f32=rng.randn(N, h_out, h_out, C).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_jax_outputs(stride, C):
+    """Every depthwise variant's JAX outputs for one (stride, C), from one
+    jit, plus the int32 accumulators and the fused oracle."""
+    c = _dw_case(stride, C)
+
+    def run(x, values, scale_w, s_scalar, s_row, gamma, beta, sc_f32):
+        eff = s_row.reshape(-1, 1, 1, 1) * scale_w.reshape(1, 1, 1, -1)
+        out = {"acc": jref.conv2d_dw_int8_ref(x, values, 3, stride),
+               "oracle": jref.conv2d_dw_collector_ref(
+                   x, values, 3, stride, eff, beta, sc_f32, relu=True),
+               "variants": []}
+        for sc_kind, relu, scale in DW_VARIANTS:
+            kw = dict(x_scale=s_scalar if scale == "scalar" else s_row,
+                      w_scale=scale_w, gamma=gamma, beta=beta,
+                      shortcut=sc_f32 if sc_kind else None, relu=relu)
+            y = jops.conv2d_dw(x, values, 3, stride, **kw)
+            y_q, s_y = jops.conv2d_dw(x, values, 3, stride, quant_out=True,
+                                      **kw)
+            out["variants"].append((y, y_q, s_y))
+        return out
+
+    names = ("x", "values", "scale_w", "s_scalar", "s_row", "gamma", "beta",
+             "sc_f32")
+    res = jax.jit(run)(*(jnp.asarray(c[n]) for n in names))
+    return jax.tree.map(np.asarray, res)
+
+
+@pytest.mark.parametrize("stride,C", DW_GEOMS)
+def test_conv_dw_accumulators_and_oracle_equal(stride, C):
+    from repro_torch.kernels import conv_depthwise
+    from repro_torch.kernels import ref as tref
+    c, j = _dw_case(stride, C), _dw_jax_outputs(stride, C)
+    t = torch.from_numpy
+    *_, acc = conv_depthwise.conv2d_dw(
+        t(c["x"]), t(c["values"]), torch.ones((N, C)), torch.zeros((C,)),
+        k=3, stride=stride, return_acc=True)
+    np.testing.assert_array_equal(acc.numpy(), j["acc"])
+    eff = (t(c["s_row"]).reshape(-1, 1, 1, 1)
+           * t(c["scale_w"]).reshape(1, 1, 1, -1))
+    got = tref.conv2d_dw_collector_ref(t(c["x"]), t(c["values"]), 3, stride,
+                                       eff, t(c["beta"]), t(c["sc_f32"]))
+    np.testing.assert_array_equal(got.numpy(), j["oracle"])
+
+
+@pytest.mark.parametrize("sc_kind,relu,scale", DW_VARIANTS)
+@pytest.mark.parametrize("stride,C", DW_GEOMS)
+def test_conv2d_dw_bit_equal(stride, C, sc_kind, relu, scale):
+    c = _dw_case(stride, C)
+    y_j, yq_j, sy_j = _dw_jax_outputs(stride, C)["variants"][
+        DW_VARIANTS.index((sc_kind, relu, scale))]
+    t = torch.from_numpy
+    kw = dict(x_scale=(torch.tensor(c["s_scalar"]) if scale == "scalar"
+                       else t(c["s_row"])),
+              w_scale=t(c["scale_w"]), gamma=t(c["gamma"]),
+              beta=t(c["beta"]), relu=relu,
+              shortcut=t(c["sc_f32"]) if sc_kind else None)
+    y = tops.conv2d_dw(t(c["x"]), t(c["values"]), 3, stride, **kw)
+    y_q, s_y = tops.conv2d_dw(t(c["x"]), t(c["values"]), 3, stride,
+                              quant_out=True, **kw)
+    np.testing.assert_array_equal(y.numpy(), y_j)
+    np.testing.assert_array_equal(y_q.numpy(), yq_j)
+    np.testing.assert_array_equal(s_y.numpy(), sy_j)
+    assert s_y.shape == sy_j.shape

@@ -10,15 +10,18 @@ the port need not have.)
 
 The geometry sweep mirrors the JAX package's kernel tests: k in {1, 3, 7}
 x stride in {1, 2}, odd and even maps, channel counts that are and are
-not tile multiples, every shortcut form.  Asserted: int32 accumulators
-equal, ``y`` and the per-image amax equal (both sides round the Collector
-once, ``fmaf`` against ``ref.fma_f32``).
+not tile multiples, every shortcut form; the depthwise kernel at
+MobileNetV2's channel counts and ragged ones; the cfmm matmul at the
+heads' shapes and ragged ones.  Asserted: int32 accumulators equal,
+``y`` and the per-image amax equal (both sides round the Collector once,
+``fmaf`` against ``ref.fma_f32``).
 """
 import pytest
 import torch
 
 from repro_torch.core.compiled_linear import _compile_leaf_2d
-from repro_torch.kernels import conv_implicit, conv_sparse, ref, sparse_matvec
+from repro_torch.kernels import (cfmm_matmul, conv_depthwise, conv_implicit,
+                                 conv_sparse, ref, sparse_matvec)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +79,26 @@ def test_conv_kernels_match_plain(dev, k, stride, c_in, c_out, hw, sc_kind,
         assert torch.equal(amax, amax_p)
 
 
+@pytest.mark.parametrize("C,hw,stride", [
+    (32, 112, 1), (96, 112, 2), (144, 56, 1), (144, 56, 2), (192, 28, 1),
+    (192, 28, 2), (384, 14, 1), (576, 14, 1), (576, 14, 2), (960, 7, 1)])
+def test_conv_depthwise_matches_plain_at_mobilenet_shapes(dev, C, hw, stride):
+    """MobileNetV2's ten depthwise shapes at 224 px, N = 2, as served
+    (ReLU, no shortcut, per-row dequant rows)."""
+    g = torch.Generator().manual_seed(C * hw + stride)
+    x = torch.randint(-127, 128, (2, hw, hw, C), generator=g,
+                      dtype=torch.int8).to(dev)
+    w = torch.randint(-63, 64, (9, C), generator=g, dtype=torch.int8).to(dev)
+    eff = (1e-3 * torch.rand((2, C), generator=g)).to(dev)
+    bias = (0.1 * torch.randn((C,), generator=g)).to(dev)
+    kw = dict(k=3, stride=stride, relu=True, return_acc=True)
+    got = conv_depthwise.conv2d_dw(x, w, eff, bias, **kw)
+    want = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 64, 10), (2, 2048, 1000),
                                    (9, 256, 33), (17, 512, 64)])
 def test_sparse_matvec_matches_plain(dev, M, K, N):
@@ -98,3 +121,77 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         conv_implicit.conv2d_implicit(x, codes, eff[:1], bias, k=3,
                                       stride=1)
+
+
+@pytest.mark.parametrize("stride,C,hw", [
+    (1, 8, 7), (2, 24, 9), (1, 40, 8), (2, 144, 14), (1, 960, 7),
+    (2, 3, 9), (1, 13, 6)])
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv_depthwise_matches_plain(dev, stride, C, hw, sc_kind, relu):
+    """Channel counts that are not multiples of 4 take the byte path and
+    mask the ragged edge; no channel padding."""
+    g = torch.Generator().manual_seed(C + hw + stride)
+    N = 2
+    x = torch.randint(-127, 128, (N, hw, hw, C), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-63, 64, (9, C), generator=g, dtype=torch.int8)
+    eff = 1e-3 * torch.rand((N, C), generator=g)
+    bias = 0.1 * torch.randn((C,), generator=g)
+    h = -(-hw // stride)
+    sc = None
+    if sc_kind == "f32":
+        sc = torch.randn((N, h, h, C), generator=g).to(dev)
+    elif sc_kind == "int8":
+        sc = (torch.randint(-127, 128, (N, h, h, C), generator=g,
+                            dtype=torch.int8).to(dev),
+              torch.rand((N,), generator=g).to(dev))
+    x, w, eff, bias = (t.to(dev).contiguous() for t in (x, w, eff, bias))
+    kw = dict(k=3, stride=stride, relu=relu, return_acc=True)
+    y, amax, acc = conv_depthwise.conv2d_dw(x, w, eff, bias, sc, **kw)
+    y_p, amax_p, acc_p = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, sc,
+                                                        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc_p)
+    assert torch.equal(y, y_p)
+    assert torch.equal(amax, amax_p)
+
+
+@pytest.mark.parametrize("C,hw,stride", [
+    (32, 112, 1), (96, 112, 2), (144, 56, 1), (144, 56, 2), (192, 28, 1),
+    (192, 28, 2), (384, 14, 1), (576, 14, 1), (576, 14, 2), (960, 7, 1)])
+def test_conv_depthwise_matches_plain_at_mobilenet_shapes(dev, C, hw, stride):
+    """MobileNetV2's ten depthwise shapes at 224 px, N = 2, as served
+    (ReLU, no shortcut, per-row dequant rows)."""
+    g = torch.Generator().manual_seed(C * hw + stride)
+    x = torch.randint(-127, 128, (2, hw, hw, C), generator=g,
+                      dtype=torch.int8).to(dev)
+    w = torch.randint(-63, 64, (9, C), generator=g, dtype=torch.int8).to(dev)
+    eff = (1e-3 * torch.rand((2, C), generator=g)).to(dev)
+    bias = (0.1 * torch.randn((C,), generator=g)).to(dev)
+    kw = dict(k=3, stride=stride, relu=True, return_acc=True)
+    got = conv_depthwise.conv2d_dw(x, w, eff, bias, **kw)
+    want = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 10), (2, 2048, 1000),
+                                   (2, 1280, 1000), (128, 2048, 1000),
+                                   (9, 130, 33), (3, 7, 5), (17, 512, 256)])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_cfmm_matmul_matches_plain(dev, M, K, N, with_scale):
+    """Exact int32 products (K and N off multiples of 4 take the byte
+    path); with a scale, one f32 rounding of ``acc * scale``."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    codes = torch.randint(-63, 64, (K, N), generator=g, dtype=torch.int8)
+    scale = (0.01 + torch.rand((1, N), generator=g)) if with_scale else None
+    x, codes = x.to(dev), codes.to(dev)
+    scale = None if scale is None else scale.to(dev)
+    out = cfmm_matmul.cfmm_matmul(x, codes, scale)
+    out_p = cfmm_matmul.cfmm_matmul_plain(x, codes, scale)
+    torch.cuda.synchronize()
+    assert out.dtype == out_p.dtype
+    assert torch.equal(out, out_p)

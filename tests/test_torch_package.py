@@ -15,15 +15,17 @@ import pytest
 import torch
 
 from repro_torch.core.compiled_linear import ensure_compiled
-from repro_torch.kernels import _cuda, conv_implicit, conv_sparse, sparse_matvec
+from repro_torch.kernels import (_cuda, cfmm_matmul, conv_depthwise,
+                                 conv_implicit, conv_sparse, sparse_matvec)
 from repro_torch.launch import mesh, serve_pipeline
-from repro_torch.models import resnet
+from repro_torch.models import mobilenet_v2, repvgg, resnet
 from repro_torch.serving.pipeline import (PipelineEngine, PipelineRequest,
                                           reference_logits)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-KERNELS = (conv_implicit.KERNEL, conv_sparse.KERNEL, sparse_matvec.KERNEL)
+KERNELS = (conv_implicit.KERNEL, conv_sparse.KERNEL, sparse_matvec.KERNEL,
+           conv_depthwise.KERNEL, cfmm_matmul.KERNEL)
 CFG = resnet.ResNetConfig(width_mult=0.125, num_classes=10, in_hw=16)
 
 
@@ -88,21 +90,40 @@ def test_driver_runs_on_cpu_when_asked(capsys):
     assert "im/s" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("mode", ["int8", "sparse_cfmm"])
-def test_cpu_tensors_never_reach_a_kernel(monkeypatch, params, mode):
+def _serve_on_cpu_without_kernels(monkeypatch, cfg, params, mode):
     def refuse(self, *args):
         raise AssertionError(f"{self.symbol} launched for a CPU tensor")
 
     monkeypatch.setattr(_cuda.CudaKernel, "launch", refuse)
     for k in KERNELS:
         monkeypatch.setattr(k, "launches", 0)
-    eng = PipelineEngine(CFG, params, mode=mode, n_stages=2, microbatch=2,
+    eng = PipelineEngine(cfg, params, mode=mode, n_stages=2, microbatch=2,
                          device="cpu")
     x = np.random.RandomState(0).randn(3, 16, 16, 3).astype(np.float32)
     out = eng.run_batch(x)
-    assert np.isfinite(out).all() and out.shape == (3, CFG.num_classes)
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    assert np.isfinite(out).all() and out.shape == (3, cfg.num_classes)
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
     assert all(k._fn is None for k in KERNELS)
+
+
+@pytest.mark.parametrize("mode", ["int8", "cfmm", "sparse_cfmm",
+                                  "bitserial"])
+def test_cpu_tensors_never_reach_a_kernel(monkeypatch, params, mode):
+    _serve_on_cpu_without_kernels(monkeypatch, CFG, params, mode)
+
+
+@pytest.mark.parametrize("model", ["mobilenet_v2", "repvgg_a0"])
+def test_cpu_zoo_never_reaches_a_kernel(monkeypatch, model):
+    """The depthwise path too: MobileNetV2 in sparse_cfmm, RepVGG (fused)
+    in cfmm."""
+    gen = torch.Generator().manual_seed(1)
+    if model == "mobilenet_v2":
+        cfg = mobilenet_v2.MobileNetV2Config(0.25, 10, 16)
+        params, mode = cfg.init(gen), "sparse_cfmm"
+    else:
+        cfg = repvgg.RepVGGConfig(0.125, 10, 16)
+        params, mode = cfg.fuse(cfg.init(gen)), "cfmm"
+    _serve_on_cpu_without_kernels(monkeypatch, cfg, params, mode)
 
 
 def test_stage_devices_wrap_round_robin():
@@ -132,7 +153,7 @@ def test_kernel_library_name_tracks_its_sources():
     """The build is keyed by a hash of the sources, so an edited kernel
     never loads a stale library; every kernel builds from csrc/."""
     names = {k.lib_path.name for k in KERNELS}
-    assert len(names) == 3
+    assert len(names) == len(KERNELS) == 5
     for k in KERNELS:
         assert (_cuda.CSRC / f"{k.source}.cu").exists()
         assert k.lib_path.parent == _cuda.BUILD_DIR

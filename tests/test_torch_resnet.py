@@ -1,6 +1,7 @@
 """Port parity for the whole slice: JAX ``resnet.init`` ->
 ``params_from_numpy`` -> the port's ``PipelineEngine(device="cpu")`` at 1
-and 2 stages, in ``int8`` and ``sparse_cfmm``, held against the JAX
+and 2 stages, in ``int8`` and ``sparse_cfmm`` and in the two modes that
+change only the head (``cfmm``, ``bitserial``), held against the JAX
 package's jitted ``serving.pipeline.reference_logits`` (jnp lowering) for
 ``ResNetConfig(width_mult=0.25, in_hw=32)``.
 
@@ -33,6 +34,7 @@ from repro_torch.serving import pipeline as tpipe
 JCFG = jres.ResNetConfig(width_mult=0.25, in_hw=32)
 TCFG = tres.ResNetConfig(width_mult=0.25, in_hw=32)
 MODES = ("int8", "sparse_cfmm")
+HEAD_MODES = ("cfmm", "bitserial")   # the int8 convs, another head
 LOGIT_BOUND = 0.0          # measured max |dlogit| vs JAX at this size
 ROWS = (3, 1, 2)           # request sizes; microbatch 2 packs across them
 
@@ -77,16 +79,25 @@ def _to_jax(tree):
 
 
 _cache = {}
+_ref_cache = {}
+
+
+def _reference(port_tree, images, mode):
+    """Per mode: the port's compiled tree and the JAX reference logits."""
+    if mode not in _ref_cache:
+        compiled = tcl.ensure_compiled(port_tree, mode, 0.8)
+        ref = np.asarray(jpipe.reference_logits(_to_jax(compiled), JCFG,
+                                                jnp.asarray(images), 2))
+        _ref_cache[mode] = (compiled, ref)
+    return _ref_cache[mode]
 
 
 def _mode_data(port_tree, images, mode):
     """Per mode: the port's compiled tree, the JAX reference logits and
     the JAX per-unit outputs (one jit of the unit chain)."""
     if mode not in _cache:
-        compiled = tcl.ensure_compiled(port_tree, mode, 0.8)
+        compiled, ref = _reference(port_tree, images, mode)
         jc = _to_jax(compiled)
-        ref = np.asarray(jpipe.reference_logits(jc, JCFG,
-                                                jnp.asarray(images), 2))
         units = jgraph.compile_graph(JCFG.graph(), jc)
 
         def chain(ps, x):
@@ -120,9 +131,9 @@ def test_unit_edges_match_jax(port_tree, images, mode):
 
 
 @pytest.mark.parametrize("n_stages", [1, 2])
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", MODES + HEAD_MODES)
 def test_pipeline_matches_jax_reference(port_tree, images, mode, n_stages):
-    compiled, ref, _ = _mode_data(port_tree, images, mode)
+    compiled, ref = _reference(port_tree, images, mode)
     eng = tpipe.PipelineEngine(TCFG, compiled, mode=mode, n_stages=n_stages,
                                microbatch=2, device="cpu")
     starts = np.cumsum((0,) + ROWS)
@@ -163,7 +174,7 @@ def test_plans_units_and_edge_bytes_match_jax(n_stages):
 
 
 @pytest.mark.parametrize("pack", [True, False])
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", MODES + HEAD_MODES)
 def test_pipeline_bit_identical_to_port_reference(port_tree, images, mode,
                                                   pack):
     """Cross-request row packing and stage count change no bit (per-row
