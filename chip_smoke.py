@@ -4,14 +4,18 @@
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA host
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   six CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the served paths give it (N = 2 images, per-row scales): int32
    accumulators equal, ``y`` within 1 ulp, requantized int8 codes off by
-   at most 1 on at most 1e-5 of them; times each (median of CUDA-event
-   timings of CUDA-graph replays) beside its bound and, where one PyTorch
-   call computes the same function, that call;
+   at most 1 on at most 1e-5 of them; ``sparse_matvec`` also at the LM's
+   linear shapes; ``flash_attention`` in bf16 and f32 at SmolLM-360M's
+   prefill shapes, rectangular Tq < Tk, a non-causal Tk = 1500, a
+   Gemma3-like window and Dv != D, within ``FLASH_TOL``; times each
+   (median of CUDA-event timings of CUDA-graph replays) beside its bound
+   and, where one PyTorch call computes the same function, that call
+   (SDPA for attention);
 3. serves, through ``PipelineEngine`` on the card, seeded random weights
    at full width (224 px, 1000 classes): ResNet50 in ``int8`` and
    ``sparse_cfmm`` at 1 and 2 stages and in ``cfmm`` and ``bitserial`` at
@@ -23,7 +27,17 @@
    bit-identical, and the launch counters of every kernel (set to 0
    just before each run, read just after) against the path's count per
    microbatch;
-4. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
+4. serves SmolLM-360M at full width (32 layers, d 960, 15/5 heads, vocab
+   49152; seeded random weights initialised and compiled on the card)
+   through the LM ``ServingEngine`` in ``int8`` and ``sparse_cfmm``: 8
+   requests of 37-1000 prompt tokens, 16 new tokens each, 4 slots.
+   Checks 32 ``flash_attention`` launches per request (and 224
+   ``sparse_matvec`` per forward in ``sparse_cfmm``), the first two
+   prefills' logits against the CPU's plain forward of the same compiled
+   tree, and the greedy tokens against a card run with the plain
+   attention substituted, both within ``LM_LOGIT_BOUND``; reports
+   prefill and decode tokens/s and one profiled run's idle share;
+5. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
 line.  It also fails without CUDA, and outside a checkout of the repo.
@@ -44,6 +58,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate, op/s
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate, flop/s
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores, flop/s
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3, bytes/s
 TIMING_REPS = 25
 SERVE_REPS = 5
@@ -79,7 +95,7 @@ SERVED = [
 ]
 # the port's kernels as torch.profiler names them
 OUR_KERNELS = ("repro::conv_kernel", "sparse_matvec_kernel",
-               "conv_dw_kernel", "cfmm_matmul_kernel")
+               "conv_dw_kernel", "cfmm_matmul_kernel", "flash_kernel")
 
 
 class CheckFailed(AssertionError):
@@ -137,8 +153,8 @@ def popcount(bitmap: torch.Tensor) -> int:
     return sum(int(((bitmap >> j) & 1).sum()) for j in range(8))
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+def bound_ms(ops: float, nbytes: float, peak=PEAK_INT8_OPS) -> tuple:
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -376,10 +392,17 @@ def check_cfmm(M, K, N, dev, gen):
                 max_abs_err=err, ulps=ulps)
 
 
-def check_sparse_matvec(dev, gen):
+# sparse_matvec: the ResNet head, then SmolLM-360M's linears in
+# sparse_cfmm (M = the prefill bucket, or the 4 decode slots)
+SPARSE_SHAPES = [("head", 2, 2048, 1000), ("LM q/o", 1024, 960, 960),
+                 ("LM k/v", 1024, 960, 320), ("LM gate/up", 1024, 960, 2560),
+                 ("LM down", 1024, 2560, 960), ("LM gate/up", 64, 960, 2560),
+                 ("LM gate/up decode", 4, 960, 2560)]
+
+
+def check_sparse_matvec(label, M, K, N, dev, gen):
     from repro_torch.core.compiled_linear import _compile_leaf_2d, act_quant
     from repro_torch.kernels import ref, sparse_matvec
-    M, K, N = 2, 2048, 1000
     w = torch.randn((K, N), generator=gen) / K ** .5
     packed = _compile_leaf_2d(w, "sparse_cfmm", 0.8)
     x_q, _ = act_quant(torch.randn((M, K), generator=gen).clamp_min(0),
@@ -389,7 +412,8 @@ def check_sparse_matvec(dev, gen):
     out = sparse_matvec.sparse_matvec(x_q, bm, vals)
     out_p = ref.sparse_matvec_ref(x_q, bm, vals)
     torch.cuda.synchronize()
-    check(torch.equal(out, out_p), "sparse_matvec: int32 products differ")
+    check(torch.equal(out, out_p), f"sparse_matvec {label}: int32 products "
+          "differ")
     err = float((out - out_p).abs().max())
     ms = median_ms(lambda: sparse_matvec.sparse_matvec(x_q, bm, vals))
     plain_ms = median_ms(lambda: ref.sparse_matvec_ref(x_q, bm, vals),
@@ -397,12 +421,89 @@ def check_sparse_matvec(dev, gen):
     nnz = popcount(bm)
     b_ms, b_by = bound_ms(2.0 * M * nnz, x_q.numel() + bm.numel()
                           + vals.numel() + M * N * 4)
-    print(f"[kernel] sparse_matvec  M={M} K={K} N={N} equal=True "
+    shape = f"{label} M={M} K={K} N={N}"
+    print(f"[kernel] sparse_matvec  {shape} equal=True "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} "
           f"({b_by}) library_ms=null", flush=True)
-    return dict(shape=f"head M={M} K={K} N={N}", ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                max_abs_err=err)
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, max_abs_err=err)
+
+
+# flash attention: (label, B, KVH, G, Tq, Tk, D, Dv, causal, window)
+FLASH_SHAPES = [
+    ("SmolLM prefill T=64", 1, 5, 3, 64, 64, 64, 64, True, None),
+    ("SmolLM prefill T=256", 1, 5, 3, 256, 256, 64, 64, True, None),
+    ("SmolLM prefill T=1024", 1, 5, 3, 1024, 1024, 64, 64, True, None),
+    ("Tq=1 vs Tk=1000", 1, 5, 3, 1, 1000, 64, 64, True, None),
+    ("Tq=7 vs Tk=1000", 1, 5, 3, 7, 1000, 64, 64, True, None),
+    ("non-causal Tk=1500", 1, 12, 1, 1500, 1500, 64, 64, False, None),
+    ("Gemma3-like window 512", 1, 1, 4, 1024, 1024, 256, 256, True, 512),
+    ("MLA-like D=192 Dv=128", 1, 16, 1, 512, 512, 192, 128, True, None),
+]
+# kernel against plain version on the card (as tests/test_torch_kernels_
+# cuda.py): the sums run in other orders and the kernel's p is relative
+# to a running max, so p rounds to bf16 at other points.  f32: 2e-5
+# absolute; bf16: 1e-2 absolute plus one output ulp (<= 2**-7 of it).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def flash_work(q, k, v, causal, window):
+    """(flops, bytes) the function needs on these inputs: the score and
+    p.v products of the (query, key) pairs the mask keeps, and q, k, v
+    and the output moved once."""
+    from repro_torch.kernels.flash_attention import position_mask
+    B, KVH, G, Tq, D = q.shape
+    Tk, Dv = k.shape[2], v.shape[-1]
+    pairs = int(position_mask(Tq, Tk, causal, window, "cpu").sum())
+    flops = 2.0 * B * KVH * G * pairs * (D + Dv)
+    nbytes = (q.numel() + k.numel() + v.numel() + B * KVH * G * Tq * Dv) \
+        * q.element_size()
+    return flops, nbytes
+
+
+def check_flash(spec, dtype, dev, gen):
+    """The flash-attention kernel at one shape against its plain version;
+    the library yardstick is SDPA (``enable_gqa=True``) where Tq = Tk and
+    there is no window (its causal mask is top-left aligned)."""
+    from repro_torch.kernels import flash_attention as fa
+    label, B, KVH, G, Tq, Tk, D, Dv, causal, window = spec
+    q = torch.randn((B, KVH, G, Tq, D), generator=gen)
+    k = torch.randn((B, KVH, Tk, D), generator=gen)
+    v = torch.randn((B, KVH, Tk, Dv), generator=gen)
+    q, k, v = (t.to(dtype).to(dev).contiguous() for t in (q, k, v))
+    out = fa.flash_attention(q, k, v, causal, window)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs()
+    tol = FLASH_TOL[dtype] + (want.float().abs() * 2.0 ** -7
+                              if dtype == torch.bfloat16 else 0.0)
+    check(bool(torch.isfinite(out).all()) and bool((err <= tol).all()),
+          f"flash_attention {label} {dtype}: off its plain version by "
+          f"{float(err.max()):.3g}")
+    ms = median_ms(lambda: fa.flash_attention(q, k, v, causal, window))
+    plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, causal,
+                                                          window),
+                         per_graph=2)
+    flops, nbytes = flash_work(q, k, v, causal, window)
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS
+                          if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    library_ms = None
+    if Tq == Tk and window is None:
+        qs = q.reshape(B, KVH * G, Tq, D)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qs, k, v, is_causal=causal, enable_gqa=True)
+        lib_err = float((sdpa().reshape(out.shape).float()
+                         - want.float()).abs().max())
+        library_ms = median_ms(sdpa)
+        print(f"[kernel]   SDPA vs plain max|d|={lib_err:.3g}", flush=True)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    shape = f"{label} {dt}"
+    print(f"[kernel] flash_attention {shape:32s} max|d|={float(err.max()):.3g}"
+          f" kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f}"
+          f" ({b_by}) library_ms={fmt(library_ms)}", flush=True)
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms,
+                max_abs_err=float(err.max()))
 
 
 # ---------------------------------------------------------------------------
@@ -573,6 +674,304 @@ def serve(kernels, card):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: SmolLM-360M served at full width through the LM engine
+# ---------------------------------------------------------------------------
+
+LM_PROMPTS = (37, 64, 130, 255, 300, 511, 777, 1000)
+LM_NEW, LM_SLOTS = 16, 4
+LM_MAX_SEQ = 1024 + 16 + 8
+LM_LINEARS = 7                  # q, k, v, o, gate, up, down per layer
+# max |dlogit| allowed between two forwards of the same tokens: the card
+# against the CPU's plain versions, and the kernel against its plain
+# version substituted on the card.  Both sides compute the same function
+# with bf16 rounded at other points (flash p and sums, CUDA's and the
+# CPU's exp/rsqrt/sin/cos); one such rounding can flip an int8 activation
+# code under a tensor-wide scale, and 32 layers carry the flip on.
+# Measured on an H100 80GB HBM3 (700 W): 0.12 card vs CPU (prompts 37
+# and 64) and 0.31 kernel vs plain attention, with logits of std 0.54;
+# a wrong mask or a lost tile moves logits by several standard
+# deviations.
+LM_LOGIT_BOUND = 0.5
+
+
+def lm_requests(cfg):
+    from repro_torch.serving.engine import Request
+    rng = np.random.RandomState(0)
+    return [Request(rid=i, prompt=[int(t) for t in rng.randint(1, cfg.vocab,
+                                                               L)],
+                    max_new_tokens=LM_NEW)
+            for i, L in enumerate(LM_PROMPTS)]
+
+
+class LMRecorder:
+    """Wraps ``lm.forward_prefill``/``forward_decode`` for one engine run:
+    per call its kind, the active slots, the last-position logits (kept
+    on the card), and the call's time with the card synchronised on both
+    sides.  The engine syncs at every step anyway (it reads the argmax)."""
+
+    def __init__(self, engine):
+        self.engine, self.calls = engine, []
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        self._orig = (lm.forward_prefill, lm.forward_decode)
+
+        def wrap(kind, fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, nc = fn(*a, **kw)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                rows = [0] if kind == "prefill" else [
+                    i for i, r in enumerate(self.engine.active)
+                    if r is not None]
+                self.calls.append((kind, rows, logits[:, -1].float(), dt,
+                                   a[1]))
+                return logits, nc
+            return call
+        lm.forward_prefill = wrap("prefill", self._orig[0])
+        lm.forward_decode = wrap("decode", self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import lm
+        lm.forward_prefill, lm.forward_decode = self._orig
+
+
+def compare_runs(calls_a, calls_b):
+    """Two engine runs of the same requests, call by call (the schedule is
+    the same without EOS).  Every prefill sees only its prompt; decode
+    steps are compared up to the first step whose greedy token differs
+    (slots share each linear's activation scale).  Returns (max |dlogit|
+    per prefill, max |dlogit| over the decode steps compared, tokens
+    compared, the margins of run a's top token over run b's where they
+    differ)."""
+    pre, dec, n_tok, margins, parted = [], 0.0, 0, [], False
+    for (kind, rows, la, _, _), (_, _, lb, _, _) in zip(calls_a, calls_b):
+        if kind == "decode" and parted:
+            continue
+        for r in rows:
+            d = float((la[r] - lb[r]).abs().max())
+            if kind == "prefill":
+                pre.append(d)
+            else:
+                dec = max(dec, d)
+            ta, tb = int(la[r].argmax()), int(lb[r].argmax())
+            if ta != tb:
+                margins.append(float(la[r][ta] - la[r][tb]))
+                parted = True
+            n_tok += 1
+    return pre, dec, n_tok, margins
+
+
+def profile_lm(make_engine, cfg, label):
+    """One more served run under ``torch.profiler``: wall time, the card's
+    busy time (sum of device kernel times on the one stream), idle share
+    and the kernels that take most."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = make_engine()
+    torch.cuda.synchronize()
+    # device activity only: a run is ~270k host ops, whose records would
+    # cost more than the run
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        eng.run(lm_requests(cfg))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not events:
+        print(f"[profile] {label}: wall {wall_ms:.1f} ms; device time not "
+              "measured (the profiler saw no kernels)", flush=True)
+        return None
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ours_ms = sum(e.self_device_time_total for e in events
+                  if any(k in e.key for k in OUR_KERNELS)) / 1e3
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%; the port's kernels "
+          f"{ours_ms:.2f} ms of it; device launches "
+          f"{sum(e.count for e in events)}", flush=True)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"x{e.count:5d}  {e.key[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, ours_ms=ours_ms,
+                idle=1 - busy_ms / wall_ms,
+                top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
+                     for e in top])
+
+
+def serve_lm(kernels, card):
+    """Serve SmolLM-360M at full width on the card in int8 and sparse_cfmm:
+    seeded random weights initialised and compiled on the card; launch
+    counts of one run; the first two prefills' logits against the CPU's
+    plain forward of the same compiled tree; the greedy tokens against a
+    card run with the flash kernel's plain version substituted; prefill
+    and decode tokens/s; one profiled run."""
+    from repro_torch import nn
+    from repro_torch.core.compiled_linear import _compile_leaf, ensure_compiled
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_cfg
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServingEngine, _bucket_len
+    cfg = build_cfg("smollm_360m", "full")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab) == (32, 960, 15, 5, 64, 2560,
+                                                  49152),
+          "smollm_360m: not the published full width")
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.value.numel() for p in nn.tree_leaves(
+        params, is_leaf=lambda x: isinstance(x, nn.Param)))
+    print(f"[lm] smollm_360m full width: {n_params / 1e6:.1f} M params, "
+          f"init on the card {time.perf_counter() - t0:.1f}s", flush=True)
+    results = {}
+    for mode in ("int8", "sparse_cfmm"):
+        label = f"smollm_360m/{mode}"
+        t0 = time.perf_counter()
+        compiled = ensure_compiled(params, mode, 0.8)
+        torch.cuda.synchronize()
+        t_compile = time.perf_counter() - t0
+        # one stacked leaf: card-compiled bytes against the CPU's compile
+        leaf = params["template"][0]["mixer"]["k"]
+        cpu_leaf = _compile_leaf(nn.Param(leaf.value.cpu(), leaf.axes,
+                                          leaf.kind), mode, 0.8)
+        for key, p in cpu_leaf.items():
+            card_bytes = compiled["template"][0]["mixer"]["k"][key].cpu()
+            check(torch.equal(card_bytes, p.value),
+                  f"{label}: the card's compiled k[{key}] differs from the "
+                  "CPU's")
+        make = lambda: ServingEngine(cfg, compiled, mode=mode,
+                                     batch_slots=LM_SLOTS,
+                                     max_seq=LM_MAX_SEQ, device="cuda")
+        make().run(lm_requests(cfg)[:2])                 # warm-up
+        for kern in kernels.values():
+            kern.launches = 0
+        eng = make()
+        reqs = lm_requests(cfg)
+        t0 = time.perf_counter()
+        with LMRecorder(eng) as rec:
+            eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: kern.launches for name, kern in kernels.items()}
+        n_fwd = len(rec.calls)
+        want = {"flash_attention": cfg.n_layers * len(LM_PROMPTS)}
+        if mode == "sparse_cfmm":
+            want["sparse_matvec"] = cfg.n_layers * LM_LINEARS * n_fwd
+        for name, got in counts.items():
+            check(got == want.get(name, 0), f"{label}: {got} {name} "
+                  f"launches in {n_fwd} forwards, want {want.get(name, 0)}")
+        for r in reqs:
+            check(r.done and len(r.tokens_out) == LM_NEW
+                  and all(0 <= t < cfg.vocab for t in r.tokens_out),
+                  f"{label}: request {r.rid} incomplete")
+        logits_ok = all(bool(torch.isfinite(c[2][c[1]]).all())
+                        for c in rec.calls)
+        check(logits_ok, f"{label}: non-finite logits")
+        pre = [c for c in rec.calls if c[0] == "prefill"]
+        dec = [c for c in rec.calls if c[0] == "decode"]
+        pre_tok = sum(LM_PROMPTS)
+        pre_bucket = sum(_bucket_len(L, LM_MAX_SEQ) for L in LM_PROMPTS)
+        dec_tok = sum(len(c[1]) for c in dec)
+        pre_s, dec_s = sum(c[3] for c in pre), sum(c[3] for c in dec)
+        print(f"[lm] {label}: compile on the card {t_compile:.1f}s; "
+              f"{len(reqs)} requests x {LM_NEW} tokens in {wall:.2f}s on "
+              f"{card}; prefill {pre_tok} tokens ({pre_bucket} bucketed) in "
+              f"{pre_s * 1e3:.1f} ms = {pre_tok / pre_s:.0f} tok/s; decode "
+              f"{dec_tok} tokens in {len(dec)} steps, {dec_s * 1e3:.1f} ms "
+              f"= {dec_tok / dec_s:.1f} tok/s; launches {counts}",
+              flush=True)
+
+        # the first two prefills against the CPU's plain forward
+        t0 = time.perf_counter()
+        cpu_params = nn.to_device(compiled, "cpu")
+        d_cpu = []
+        for i in range(2):
+            L = LM_PROMPTS[i]
+            bucket = _bucket_len(L, LM_MAX_SEQ)
+            toks = torch.zeros((1, bucket), dtype=torch.long)
+            toks[0, :L] = torch.tensor(reqs[i].prompt)
+            check(torch.equal(pre[i][4]["tokens"].cpu(), toks),
+                  f"{label}: prefill {i} saw other tokens")
+            cache = nn.unbox(lm.cache_init(cfg, 1, LM_MAX_SEQ))
+            ref, _ = lm.forward_prefill(
+                cpu_params, {"tokens": toks,
+                             "length": torch.tensor([L], dtype=torch.int32)},
+                cfg, cache)
+            ref = ref[0, -1].float()
+            got = pre[i][2][0].cpu()
+            d = float((got - ref).abs().max())
+            top_ref, top_got = int(ref.argmax()), int(got.argmax())
+            margin = float(ref[top_ref] - ref[top_got])
+            print(f"[lm] {label}: prefill L={L} card vs CPU plain: "
+                  f"max|dlogit|={d:.4g} top1_equal={top_ref == top_got} "
+                  f"(CPU margin over the card's top {margin:.4g})",
+                  flush=True)
+            check(d <= LM_LOGIT_BOUND, f"{label}: card logits off the CPU's "
+                  f"by {d:.4g} at L={L}")
+            check(top_ref == top_got or margin <= 2 * LM_LOGIT_BOUND,
+                  f"{label}: top-1 differs from the CPU's at margin "
+                  f"{margin:.4g}")
+            d_cpu.append(d)
+        print(f"[lm] {label}: CPU plain forwards {time.perf_counter() - t0:.1f}s",
+              flush=True)
+
+        # the greedy tokens against the plain attention, on the card
+        plain_eng = make()
+        orig = ops._flash_kernel
+        ops._flash_kernel = fa.flash_attention_plain
+        try:
+            fa.KERNEL.launches = 0
+            with LMRecorder(plain_eng) as rec_plain:
+                plain_reqs = plain_eng.run(lm_requests(cfg))
+        finally:
+            ops._flash_kernel = orig
+        check(fa.KERNEL.launches == 0, f"{label}: the substituted run "
+              "launched the flash kernel")
+        pre_d, dec_d, n_tok, margins = compare_runs(rec_plain.calls,
+                                                    rec.calls)
+        worst = max(pre_d + [dec_d])
+        same = sum(a == b for r, pr in zip(reqs, plain_reqs)
+                   for a, b in zip(r.tokens_out, pr.tokens_out))
+        streams_equal = all(r.tokens_out == pr.tokens_out
+                            for r, pr in zip(reqs, plain_reqs))
+        std = float(torch.stack([c[2][0] for c in pre]).std())
+        print(f"[lm] {label}: served tokens vs plain attention on the card: "
+              f"streams_equal={streams_equal}, {same} of "
+              f"{len(reqs) * LM_NEW} tokens equal; {n_tok} compared before "
+              f"any decode step parted; prefill max|dlogit| by prompt "
+              f"{dict(zip(LM_PROMPTS, (round(d, 4) for d in pre_d)))}, "
+              f"decode {dec_d:.4g} (logit std {std:.3f}); margins where "
+              f"parted {margins}", flush=True)
+        check(worst <= LM_LOGIT_BOUND, f"{label}: kernel run off the plain "
+              f"run by {worst:.4g}")
+        check(all(m <= 2 * LM_LOGIT_BOUND for m in margins),
+              f"{label}: a token parted at margin {max(margins, default=0)}")
+        check(streams_equal or margins, f"{label}: streams differ though "
+              "no compared step parted")
+
+        prof = profile_lm(make, cfg, label)
+        results[label] = dict(
+            counts=counts, forwards=n_fwd, wall_s=wall,
+            prefill_tok_s=pre_tok / pre_s, prefill_ms=pre_s * 1e3,
+            decode_tok_s=dec_tok / dec_s, decode_ms=dec_s * 1e3,
+            decode_steps=len(dec), cpu_max_dlogit=d_cpu,
+            plain_attention=dict(streams_equal=streams_equal,
+                                 tokens_equal=same, prefill_max_dlogit=pre_d,
+                                 decode_max_dlogit=dec_d, logit_std=std,
+                                 margins=margins),
+            profile=prof)
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -580,7 +979,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import (_cuda, cfmm_matmul, conv_depthwise,
                                      conv_implicit, conv_sparse,
-                                     sparse_matvec)
+                                     flash_attention, sparse_matvec)
     card = gpu_identity()
     print(f"[card] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} | "
@@ -591,7 +990,8 @@ def main() -> int:
                "conv_sparse": conv_sparse.KERNEL,
                "sparse_matvec": sparse_matvec.KERNEL,
                "conv_depthwise": conv_depthwise.KERNEL,
-               "cfmm_matmul": cfmm_matmul.KERNEL}
+               "cfmm_matmul": cfmm_matmul.KERNEL,
+               "flash_attention": flash_attention.KERNEL}
     t0 = time.perf_counter()
     logs = _cuda.build_all(kernels.values())
     print(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f}s",
@@ -608,7 +1008,11 @@ def main() -> int:
         c = conv_case(spec, dev, gen)
         for kind in ("conv_implicit", "conv_sparse"):
             rows[kind].append(check_conv_kernel(kind, c))
-    rows["sparse_matvec"] = [check_sparse_matvec(dev, gen)]
+    rows["sparse_matvec"] = [check_sparse_matvec(*sh, dev, gen)
+                             for sh in SPARSE_SHAPES]
+    rows["flash_attention"] = [check_flash(sp, dt, dev, gen)
+                               for dt in (torch.bfloat16, torch.float32)
+                               for sp in FLASH_SHAPES]
     rows["conv_depthwise"] = [check_depthwise(*s, dev, gen)
                               for s in DW_SHAPES]
     rows["cfmm_matmul"] = [check_cfmm(*s, dev, gen) for s in CFMM_SHAPES]
@@ -616,6 +1020,9 @@ def main() -> int:
           flush=True)
 
     served = serve(kernels, card)
+    print(f"[time] CNN serve phase done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    lm_served = serve_lm(kernels, card)
 
     meta = {
         "conv_implicit": ("src/repro_torch/csrc/conv_implicit.cu",
@@ -628,6 +1035,8 @@ def main() -> int:
                            "src/repro/kernels/conv_depthwise.py:80"),
         "cfmm_matmul": ("src/repro_torch/csrc/cfmm_matmul.cu",
                         "src/repro/kernels/cfmm_matmul.py:44"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:84"),
     }
     entries = []
     for name, shape_rows in rows.items():
@@ -639,6 +1048,9 @@ def main() -> int:
         by_path = {f"{m}/{mode}/{n}": v["counts"][name]
                    for (m, mode, n), v in served.items()
                    if v["counts"][name]}
+        by_path.update({path: v["counts"][name]
+                        for path, v in lm_served.items()
+                        if v["counts"][name]})
         entries.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -663,6 +1075,7 @@ def main() -> int:
     serve_line = [{"path": f"{m}/{mode}", "n_stages": n, **v}
                   for (m, mode, n), v in served.items()]
     print(json.dumps({"serve": serve_line}), flush=True)
+    print(json.dumps({"lm_serve": lm_served}), flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -18,8 +18,9 @@ runs here, once.  Conv leaves keyed ``codes``/``bs_codes`` feed the dense
 conv kernel like ``values``: as int8 operands they are the same codes.
 Depthwise leaves store dense tap-major ``(k*k, C)`` int8 ``values`` plus
 a per-channel scale in every serve mode (K = k*k rows: a bitmap saves
-nothing there).  The bytes are equal to the JAX package's for the same
-float weights (tested).  The ``dense`` mode needs the dense training
+nothing there).  Stacked leaves ``(layers, K, N)`` compile slice by
+slice into stacked compiled leaves.  The bytes are equal to the JAX
+package's for the same float weights (tested).  The ``dense`` mode needs the dense training
 forward, which is not ported: it raises.
 """
 from __future__ import annotations
@@ -132,6 +133,9 @@ def apply_linear(w: dict, x: torch.Tensor,
                  per_row: bool = False) -> torch.Tensor:
     """y = x @ W for a compiled weight leaf.  Preserves x.dtype.
 
+    ``x`` is ``(..., K)`` in any float type (the LM feeds bf16
+    ``(B, T, d)``): the leading axes flatten into the rows of one
+    ``(M, K)`` product and come back on the way out.
     ``per_row=True`` quantizes each flattened input row under its own
     INT8 domain — the compiled ResNet head uses it so a request's logits
     never depend on which rows share its microbatch.  Every mode's int32
@@ -185,20 +189,22 @@ def apply_conv(w: dict, x_q: torch.Tensor, x_scale, *, gamma=None,
 # Compilation (training tree -> constant-parameter serving tree)
 # ---------------------------------------------------------------------------
 
-def _leaf_axes(kind: str, in_ax, out_ax):
+def _leaf_axes(kind: str, lead, in_ax, out_ax):
     if kind in ("scale", "values"):
-        return (None, out_ax)
-    return (in_ax, out_ax)               # bitmap: rows = ceil(in/8)
+        return lead + (None, out_ax)
+    return lead + (in_ax, out_ax)        # bitmap: rows = ceil(in/8)
 
 
 def _compile_leaf(p: nn.Param, mode: str, sparsity: float) -> dict:
+    """One weight leaf.  A stacked leaf ``(*lead, K, N)`` (the LM's
+    ``layers`` axis) compiles slice by slice and stacks the results, as
+    the JAX package vmaps ``_compile_leaf_2d`` over the leading axes."""
     w = p.value.float()
-    if w.ndim != 2:
-        raise NotImplementedError(f"stacked leaves {tuple(w.shape)} belong "
-                                  "to the LM port slice")
-    in_ax, out_ax = p.axes[-2], p.axes[-1]
+    lead, in_ax, out_ax = tuple(p.axes[:-2]), p.axes[-2], p.axes[-1]
     dw = nn.dwconv_geom_of(p.kind)
     if dw is not None:           # depthwise: dense tap-major in every mode
+        assert w.ndim == 2, f"stacked depthwise leaves unsupported: " \
+            f"{tuple(w.shape)}"
         k, stride = dw
         assert w.shape[0] == k * k, (tuple(w.shape), p.kind)
         qt = quantize_int7(w, axis=-1)             # per-channel scale
@@ -206,15 +212,20 @@ def _compile_leaf(p: nn.Param, mode: str, sparsity: float) -> dict:
                 "scale": nn.Param(qt.scale.reshape(1, -1), (None, out_ax)),
                 "geom": ConvGeom(k, stride, 1, dw=True)}
     geom = nn.conv_geom_of(p.kind)
-    out = _compile_leaf_2d(w, mode, sparsity,
-                           geom[0] if geom is not None else None)
-    packed = {k: nn.Param(v, _leaf_axes(k, in_ax, out_ax))
+    conv_k = geom[0] if geom is not None else None
+    K = w.shape[-2]
+    slices = [_compile_leaf_2d(wi, mode, sparsity, conv_k)
+              for wi in w.reshape((-1,) + tuple(w.shape[-2:]))]
+    out = {k: torch.stack([o[k] for o in slices]).reshape(
+        tuple(w.shape[:-2]) + tuple(slices[0][k].shape))
+        for k in slices[0]}
+    packed = {k: nn.Param(v, _leaf_axes(k, lead, in_ax, out_ax))
               for k, v in out.items()}
     if geom is not None:                           # conv weights stay
         k, stride = geom                           # self-describing
-        packed["geom"] = ConvGeom(k, stride, w.shape[0] // (k * k))
-    elif mode == "sparse_cfmm" and w.shape[0] % 8 != 0:
-        packed["kdim"] = KDim(w.shape[0])          # unpadded K (pad_rows8)
+        packed["geom"] = ConvGeom(k, stride, K // (k * k))
+    elif mode == "sparse_cfmm" and K % 8 != 0:
+        packed["kdim"] = KDim(K)                   # unpadded K (pad_rows8)
     return packed
 
 

@@ -7,8 +7,10 @@ paper's six ternary residual terms), stored in int8.  Activations: INT8,
 with one tensor-wide scale or one scale per leading-axis row.
 
 Rounding matches the JAX package as it runs eagerly (``compile_params``):
-``amax / qmax`` is a true division.  ``torch.round`` rounds half to even,
-like ``jnp.round``.
+``amax / qmax`` is a true division, on the card too (PyTorch's CUDA
+division by a Python scalar multiplies by its reciprocal, so ``qmax``
+rides a device tensor).  ``torch.round`` rounds half to even, like
+``jnp.round``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ class QTensor:
 def _channel_scale(w: torch.Tensor, axis: int, qmax: int) -> torch.Tensor:
     reduce_axes = tuple(i for i in range(w.ndim) if i != axis % w.ndim)
     amax = torch.amax(torch.abs(w), dim=reduce_axes, keepdim=True)
-    return torch.clamp_min(amax, 1e-12) / qmax
+    return torch.clamp_min(amax, 1e-12) / torch.full_like(amax, qmax)
 
 
 def quantize_int7(w: torch.Tensor, axis: int = -1) -> QTensor:
@@ -57,7 +59,8 @@ def quantize_act_int8(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                               keepdim=True)
         else:
             amax = torch.amax(torch.abs(x))
-        scale = torch.clamp_min(amax, 1e-12) / INT8_ACT_MAX
+        amax = torch.clamp_min(amax, 1e-12)
+        scale = amax / torch.full_like(amax, INT8_ACT_MAX)
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     q = torch.clamp(torch.round(x / scale), -INT8_ACT_MAX, INT8_ACT_MAX)
     return QTensor(q.to(torch.int8), scale, 0 if per_row else -1)

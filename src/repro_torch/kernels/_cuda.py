@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def nvcc() -> str:

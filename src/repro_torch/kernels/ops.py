@@ -1,6 +1,6 @@
-"""The conv and matmul ops of the CNN path (ports the ``conv2d``,
-``conv2d_dw``, ``cfmm_matmul`` and ``sparse_cfmm_matmul`` parts of
-``repro/kernels/ops.py``).
+"""The conv, matmul and attention ops (ports the ``conv2d``,
+``conv2d_dw``, ``cfmm_matmul``, ``sparse_cfmm_matmul`` and
+``flash_attention`` parts of ``repro/kernels/ops.py``).
 
 Each op prepares its kernel's arguments and calls the kernel's wrapper,
 which dispatches by the tensor's device alone: the plain PyTorch version
@@ -21,6 +21,8 @@ from repro_torch.kernels.cfmm_matmul import cfmm_matmul as _cfmm_kernel
 from repro_torch.kernels.conv_depthwise import conv2d_dw as _dw_kernel
 from repro_torch.kernels.conv_implicit import conv2d_implicit
 from repro_torch.kernels.conv_sparse import conv2d_sparse
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_kernel
 from repro_torch.kernels.sparse_matvec import sparse_matvec
 
 INV_127 = 1.0 / 127.0      # rounds to XLA's folded f32(1/127) constant
@@ -51,6 +53,17 @@ def sparse_cfmm_matmul(x_q: torch.Tensor, bitmap: torch.Tensor,
         x_q = F.pad(x_q, (0, pad))
     acc = sparse_matvec(x_q.contiguous(), bitmap, values)
     return acc if scale is None else acc.float() * scale
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """GQA-native flash attention.
+
+    q: (B, KVH, G, Tq, D); k: (B, KVH, Tk, D); v: (B, KVH, Tk, Dv).  The
+    JAX op pads to whole Pallas tiles (``_largest_tile``); the CUDA kernel
+    masks its ragged edges itself, so no tile search or pad is needed."""
+    return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal, window)
 
 
 def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,

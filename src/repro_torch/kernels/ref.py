@@ -221,3 +221,28 @@ def _collector(acc: torch.Tensor, eff_scale: torch.Tensor,
     elif shortcut is not None:
         y = y + shortcut.float()
     return torch.clamp_min(y, 0.0) if relu else y
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window=None) -> torch.Tensor:
+    """Naive softmax attention oracle for the flash paths.
+
+    q, k, v: (B, H, T, D) (k/v may have fewer heads: GQA is the caller's).
+    Queries sit at the end of the key sequence (offset Tk - Tq).
+    """
+    T, S = q.shape[-2], k.shape[-2]
+    scores = torch.einsum("bhtd,bhsd->bhts", q, k) / (q.shape[-1] ** 0.5)
+    pos_q = torch.arange(T, device=q.device)[:, None] + (S - T)
+    pos_k = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos_k <= pos_q
+    if window is not None:
+        mask &= pos_k > pos_q - window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", p, v)

@@ -56,25 +56,29 @@ def _is_param(x) -> bool:
 
 
 def param(gen: torch.Generator, shape, axes, init: str = "normal",
-          kind: str = "generic") -> Param:
-    """Create an initialized f32 Param with logical axes (CPU).
+          kind: str = "generic", scale: float | None = None) -> Param:
+    """Create an initialized f32 Param with logical axes, on the device of
+    ``gen`` (a CUDA generator initialises on the card).
 
-    init: 'normal' (truncated normal in [-2, 2], scaled by 1/sqrt(fan_in)
-    with fan_in = shape[0], as in the JAX package), 'zeros', 'ones'.
-    Values come from ``gen``; they differ from the JAX package's for the
-    same seed, so parity tests carry weights across with
-    ``params_from_numpy`` instead.
+    init: 'normal' (truncated normal in [-2, 2], scaled by ``scale`` or
+    by default 1/sqrt(fan_in) with fan_in = shape[0], as in the JAX
+    package), 'zeros', 'ones'.  Values come from ``gen``; they differ
+    from the JAX package's for the same seed, so parity tests carry
+    weights across with ``params_from_numpy`` instead.
     """
     assert len(axes) == len(shape), (axes, shape)
+    dev = gen.device if gen is not None else torch.device("cpu")
     if init == "zeros":
-        value = torch.zeros(shape)
+        value = torch.zeros(shape, device=dev)
     elif init == "ones":
-        value = torch.ones(shape)
+        value = torch.ones(shape, device=dev)
     else:
-        value = torch.empty(shape)
+        value = torch.empty(shape, device=dev)
         torch.nn.init.trunc_normal_(value, 0.0, 1.0, -2.0, 2.0,
                                     generator=gen)
-        value *= 1.0 / math.sqrt(max(1, shape[0]))
+        if scale is None:
+            scale = 1.0 / math.sqrt(max(1, shape[0]))
+        value *= scale
     return Param(value, tuple(axes), kind)
 
 
@@ -161,6 +165,28 @@ def params_to_numpy(tree: PyTree) -> PyTree:
     return tree_map(lambda p: (p.value.detach().cpu().numpy(), p.axes,
                                p.kind) if _is_param(p) else p, tree,
                     is_leaf=_is_param)
+
+
+def vmap_init(init_fn: Callable, gen: torch.Generator, n: int, *args,
+              **kwargs):
+    """Initialize ``n`` stacked copies of a layer (the port of JAX's
+    ``vmap`` over split keys): ``n`` calls of ``init_fn(gen, ...)`` in
+    turn, each leaf stacked along a new leading axis named 'layers'."""
+    copies = [init_fn(gen, *args, **kwargs) for _ in range(n)]
+
+    def build(trees):
+        first = trees[0]
+        if _is_param(first):
+            return Param(torch.stack([t.value for t in trees]),
+                         ("layers",) + first.axes, first.kind)
+        if isinstance(first, dict):
+            return {k: build([t[k] for t in trees]) for k in first}
+        if isinstance(first, (list, tuple)):
+            return type(first)(build([t[i] for t in trees])
+                               for i in range(len(first)))
+        return first
+
+    return build(copies)
 
 
 def to_device(tree: PyTree, device) -> PyTree:

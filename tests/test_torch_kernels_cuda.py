@@ -14,14 +14,19 @@ not tile multiples, every shortcut form; the depthwise kernel at
 MobileNetV2's channel counts and ragged ones; the cfmm matmul at the
 heads' shapes and ragged ones.  Asserted: int32 accumulators equal,
 ``y`` and the per-image amax equal (both sides round the Collector once,
-``fmaf`` against ``ref.fma_f32``).
+``fmaf`` against ``ref.fma_f32``).  The flash-attention kernel against
+its plain version in f32 and bf16 over the JAX kernel test's sweep, the
+LM's served shapes, ragged and rectangular Tq/Tk, windows and Dv != D,
+within the tolerances of ``FLASH_TOL``; the sparse matmul at the LM's
+linear shapes.
 """
 import pytest
 import torch
 
 from repro_torch.core.compiled_linear import _compile_leaf_2d
 from repro_torch.kernels import (cfmm_matmul, conv_depthwise, conv_implicit,
-                                 conv_sparse, ref, sparse_matvec)
+                                 conv_sparse, flash_attention, ref,
+                                 sparse_matvec)
 
 pytestmark = pytest.mark.cuda
 
@@ -77,26 +82,6 @@ def test_conv_kernels_match_plain(dev, k, stride, c_in, c_out, hw, sc_kind,
         assert torch.equal(acc, acc_p)
         assert torch.equal(y, y_p)
         assert torch.equal(amax, amax_p)
-
-
-@pytest.mark.parametrize("C,hw,stride", [
-    (32, 112, 1), (96, 112, 2), (144, 56, 1), (144, 56, 2), (192, 28, 1),
-    (192, 28, 2), (384, 14, 1), (576, 14, 1), (576, 14, 2), (960, 7, 1)])
-def test_conv_depthwise_matches_plain_at_mobilenet_shapes(dev, C, hw, stride):
-    """MobileNetV2's ten depthwise shapes at 224 px, N = 2, as served
-    (ReLU, no shortcut, per-row dequant rows)."""
-    g = torch.Generator().manual_seed(C * hw + stride)
-    x = torch.randint(-127, 128, (2, hw, hw, C), generator=g,
-                      dtype=torch.int8).to(dev)
-    w = torch.randint(-63, 64, (9, C), generator=g, dtype=torch.int8).to(dev)
-    eff = (1e-3 * torch.rand((2, C), generator=g)).to(dev)
-    bias = (0.1 * torch.randn((C,), generator=g)).to(dev)
-    kw = dict(k=3, stride=stride, relu=True, return_acc=True)
-    got = conv_depthwise.conv2d_dw(x, w, eff, bias, **kw)
-    want = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, **kw)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 10), (2, 2048, 1000),
@@ -195,3 +180,82 @@ def test_cfmm_matmul_matches_plain(dev, M, K, N, with_scale):
     torch.cuda.synchronize()
     assert out.dtype == out_p.dtype
     assert torch.equal(out, out_p)
+
+
+# flash attention, kernel against plain version: the two sum the scores
+# and p.v in other orders, and the kernel's p is relative to a running
+# max, so it rounds to bf16 at other points (2**-9 relative each, at
+# most about 2**-9 * max|v| < 1e-2 on the output).  f32: 2e-5 absolute on
+# O(1) outputs; bf16: 1e-2 absolute plus one output ulp (<= 2**-7 of it).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _flash_inputs(B, KVH, G, Tq, Tk, D, Dv, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, KVH, G, Tq, D), generator=g)
+    k = torch.randn((B, KVH, Tk, D), generator=g)
+    v = torch.randn((B, KVH, Tk, Dv), generator=g)
+    return tuple(t.to(dtype).to(dev) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KVH,G,Tq,Tk,D,Dv,causal,window", [
+    # tests/test_kernels.py's sweep
+    (1, 2, 1, 128, 256, 32, 32, True, None),
+    (1, 2, 4, 128, 256, 32, 32, True, None),
+    (1, 2, 2, 128, 256, 32, 32, False, None),
+    (1, 2, 2, 128, 256, 32, 32, True, 64),
+    (1, 2, 2, 128, 256, 32, 16, True, None),
+    # SmolLM-360M prefill, ragged buckets and rectangles
+    (1, 5, 3, 64, 64, 64, 64, True, None),
+    (1, 5, 3, 1000, 1000, 64, 64, True, None),
+    (2, 5, 3, 37, 37, 64, 64, True, None),
+    (1, 5, 3, 7, 1000, 64, 64, True, None),
+    (1, 5, 3, 1, 1000, 64, 64, True, None),
+    (1, 1, 2, 8, 1500, 16, 16, False, None),
+    # Gemma3-like window, MLA's Dv != D, G = 32 (one position per tile)
+    (1, 1, 4, 1024, 1024, 256, 256, True, 512),
+    (1, 2, 2, 100, 100, 192, 128, True, None),
+    (1, 1, 32, 33, 50, 32, 32, True, 9),
+])
+def test_flash_attention_matches_plain(dev, B, KVH, G, Tq, Tk, D, Dv,
+                                       causal, window, dtype):
+    q, k, v = _flash_inputs(B, KVH, G, Tq, Tk, D, Dv, dtype, dev,
+                            seed=Tq + Tk + D)
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal, window)
+    want = flash_attention.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()
+    tol = FLASH_TOL[dtype] + (want.float().abs() * 2.0 ** -7
+                              if dtype == torch.bfloat16 else 0.0)
+    assert bool((err <= tol).all()), float(err.max())
+
+
+def test_flash_attention_rejects_what_it_does_not_take(dev):
+    q, k, v = _flash_inputs(1, 1, 2, 9, 8, 16, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="Tq <= Tk"):
+        flash_attention.flash_attention(q, k, v)          # Tq > Tk
+    q, k, v = _flash_inputs(1, 1, 2, 8, 8, 16, 16, torch.float16, dev)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 960, 960), (37, 960, 320),
+                                   (4, 960, 2560), (130, 2560, 960)])
+def test_sparse_matvec_matches_plain_at_lm_shapes(dev, M, K, N):
+    """SmolLM-360M's linears in sparse_cfmm: prefill rows (M = bucket)
+    and decode rows (M = slots)."""
+    g = torch.Generator().manual_seed(M + K + N)
+    packed = _compile_leaf_2d(torch.randn((K, N), generator=g),
+                              "sparse_cfmm", 0.8)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    x, bm, vals = (t.to(dev).contiguous() for t in
+                   (x, packed["bitmap"], packed["values"]))
+    got = sparse_matvec.sparse_matvec(x, bm, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.sparse_matvec_ref(x, bm, vals))

@@ -15,17 +15,20 @@ import pytest
 import torch
 
 from repro_torch.core.compiled_linear import ensure_compiled
+from repro_torch.configs import smollm_360m
 from repro_torch.kernels import (_cuda, cfmm_matmul, conv_depthwise,
-                                 conv_implicit, conv_sparse, sparse_matvec)
-from repro_torch.launch import mesh, serve_pipeline
-from repro_torch.models import mobilenet_v2, repvgg, resnet
+                                 conv_implicit, conv_sparse, flash_attention,
+                                 sparse_matvec)
+from repro_torch.launch import mesh, serve, serve_pipeline
+from repro_torch.models import lm, mobilenet_v2, repvgg, resnet
+from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.pipeline import (PipelineEngine, PipelineRequest,
                                           reference_logits)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 KERNELS = (conv_implicit.KERNEL, conv_sparse.KERNEL, sparse_matvec.KERNEL,
-           conv_depthwise.KERNEL, cfmm_matmul.KERNEL)
+           conv_depthwise.KERNEL, cfmm_matmul.KERNEL, flash_attention.KERNEL)
 CFG = resnet.ResNetConfig(width_mult=0.125, num_classes=10, in_hw=16)
 
 
@@ -126,6 +129,52 @@ def test_cpu_zoo_never_reaches_a_kernel(monkeypatch, model):
     _serve_on_cpu_without_kernels(monkeypatch, cfg, params, mode)
 
 
+def test_lm_engine_and_driver_raise_without_cuda(no_cuda):
+    cfg = serve.build_cfg("smollm_360m", "tiny")
+    params = lm.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, mode="int8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1", "--prompt-len", "4"])
+
+
+@pytest.mark.parametrize("mode", ["int8", "cfmm", "sparse_cfmm"])
+def test_lm_driver_serves_on_cpu_without_kernels(monkeypatch, capsys, mode):
+    """``launch/serve.py --device cpu`` serves the tiny preset through the
+    plain versions: no kernel launches, no kernel library loads."""
+    def refuse(self, *args):
+        raise AssertionError(f"{self.symbol} launched for a CPU tensor")
+
+    monkeypatch.setattr(_cuda.CudaKernel, "launch", refuse)
+    for k in KERNELS:
+        monkeypatch.setattr(k, "launches", 0)
+    reqs = serve.main(["--mode", mode, "--requests", "3", "--prompt-len",
+                       "11", "--max-new", "3", "--slots", "2",
+                       "--device", "cpu"])
+    assert [len(r.tokens_out) for r in reqs] == [3, 3, 3]
+    assert all(0 <= t < 512 for r in reqs for t in r.tokens_out)
+    assert "tok/s" in capsys.readouterr().out
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+    assert all(k._fn is None for k in KERNELS)
+
+
+def test_lm_config_and_unported_parts_raise():
+    """SmolLM-360M's published shape; parts of the LM stack the port does
+    not have yet raise and name the queue that holds them."""
+    cfg = smollm_360m.CONFIG
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab) == (32, 960, 15, 5, 64,
+                                                   2560, 49152)
+    assert cfg.tie_embeddings and cfg.reduced().n_kv_heads == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        serve.build_cfg("gemma3_1b", "tiny")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        lm.forward_train({}, {}, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        lm.cache_init(serve.build_cfg("smollm_360m", "tiny"), 1, 8,
+                      kv_dtype=torch.int8)
+
+
 def test_stage_devices_wrap_round_robin():
     devs = [torch.device("cpu")]
     assert mesh.pipeline_stage_devices(3, devs) == devs * 3
@@ -153,7 +202,7 @@ def test_kernel_library_name_tracks_its_sources():
     """The build is keyed by a hash of the sources, so an edited kernel
     never loads a stale library; every kernel builds from csrc/."""
     names = {k.lib_path.name for k in KERNELS}
-    assert len(names) == len(KERNELS) == 5
+    assert len(names) == len(KERNELS) == 6
     for k in KERNELS:
         assert (_cuda.CSRC / f"{k.source}.cu").exists()
         assert k.lib_path.parent == _cuda.BUILD_DIR
