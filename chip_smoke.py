@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA host
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   six CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   seven CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the served paths give it (N = 2 images, per-row scales): int32
@@ -16,6 +16,21 @@
    (median of CUDA-event timings of CUDA-graph replays) beside its bound
    and, where one PyTorch call computes the same function, that call
    (SDPA for attention);
+2b. drives ``ops.block_sparse_matmul`` (no served path of the JAX package
+   calls it) in f32 and bf16, TF32 off: (A) the paper's recipe at every
+   distinct shape of ResNet50's 1x1 convs (224 px, microbatch 2) —
+   seeded N(0, 1) weights pruned to 80 %, INT7 codes, ``cluster_rows``,
+   x's columns and w's rows permuted alike — at blocks of 64 x 64 and,
+   where they tile, 128 x 128, printing the block sparsity before and
+   after clustering; (B) four shapes (ResNet50 conv2_x, conv4_x,
+   conv5_x, SmolLM-360M's gate/up at 1024 tokens) with 100, 50 and 20 %
+   of their 64 x 64 blocks kept, printing kernel time per active block;
+   (C) an empty mask (zeros, no launch), an empty block column, ragged
+   M, a 48 x 80 block and bf16 weights that round.  Each call's output
+   is held to the kernel's plain version within ``BS_RTOL``/``BS_ATOL``
+   (and part A's to the unpermuted ``x @ w``), and timed beside its
+   bound, the plain version and one cuBLAS ``torch.matmul`` of x with
+   the dense masked weights;
 3. serves, through ``PipelineEngine`` on the card, seeded random weights
    at full width (224 px, 1000 classes): ResNet50 in ``int8`` and
    ``sparse_cfmm`` at 1 and 2 stages and in ``cfmm`` and ``bitserial`` at
@@ -507,6 +522,223 @@ def check_flash(spec, dtype, dev, gen):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the block-sparse constant-weight matmul
+# ---------------------------------------------------------------------------
+
+# kernel against plain version on the card (as tests/test_torch_kernels_
+# cuda.py): the same f32 terms summed in another order, rounded once to
+# x's type.  f32: 1e-5 relative plus 1e-4 absolute; bf16: that plus one
+# output ulp (<= 2**-7 of it), as the two f32 sums may straddle a
+# rounding point.
+BS_RTOL, BS_ATOL = 1e-5, 1e-4
+BS_REPS = 10                 # timing reps: part A times 54 cases
+# part B: (label, M, K, N) at block (64, 64), with 100, 50 and 20 % of the
+# blocks kept
+BS_MASK_SHAPES = [("ResNet50 conv2_x", 6272, 64, 256),
+                  ("ResNet50 conv4_x", 392, 1024, 256),
+                  ("ResNet50 conv5_x", 98, 2048, 512),
+                  ("SmolLM-360M gate/up, 1024 tokens", 1024, 960, 2560)]
+BS_KEEP = (1.0, 0.5, 0.2)
+
+
+def bs_close(got, want):
+    """(within BS_RTOL/BS_ATOL (+ one bf16 ulp), max |d|)."""
+    err = (got.float() - want.float()).abs()
+    tol = BS_ATOL + BS_RTOL * want.float().abs()
+    if want.dtype == torch.bfloat16:
+        tol = tol + want.float().abs() * 2.0 ** -7
+    return bool((err <= tol).all()), float(err.max())
+
+
+def resnet50_1x1_shapes():
+    """Every distinct (M, c_in, c_out) of ResNet50's 1x1 convs as the
+    port's ``resnet_graph`` gives them at 224 px, microbatch 2 (M is the
+    conv's output pixels: a stride-2 1x1 conv multiplies the subsampled
+    map)."""
+    from repro_torch.models import resnet
+    g = resnet.resnet_graph(resnet.ResNetConfig())
+    info = g.shapes()
+    return sorted({(2 * info[n.name].hw ** 2, n.c_in, n.c_out)
+                   for n in g.nodes if n.op == "conv" and n.k == 1})
+
+
+def check_block_sparse(label, x, w, block, dev):
+    """One call of ``ops.block_sparse_matmul`` on the card (the path; its
+    launch counter set to 0 just before and read just after), then its
+    output against the kernel's plain version on the kernel's own
+    operands, the empty block columns exact zeros, and the times of the
+    kernel, the plain version and one cuBLAS ``torch.matmul`` of x with
+    the dense masked weights (the same function without the skipping).
+    Returns (the shape's row, path launches, the op's output)."""
+    from repro_torch.kernels import block_sparse, ops, ref
+    dtype = x.dtype
+    block_sparse.KERNEL.launches = 0
+    y = ops.block_sparse_matmul(x, w, block)
+    torch.cuda.synchronize()
+    launches = block_sparse.KERNEL.launches
+    p = block_sparse.pack_blocks(w, block, dtype, dev)
+    mask = p.mask
+    check(launches == int(mask.any()), f"block_sparse {label}: {launches} "
+          f"launches for one call")
+    args = (p.w_blocks, p.meta, p.offsets, block, p.n_blocks_n)
+    y_p = ref.block_sparse_matmul_plain(x, *args)
+    ok, err = bs_close(y, y_p)
+    check(ok and bool(torch.isfinite(y).all()),
+          f"block_sparse {label}: off its plain version by {err:.3g}")
+    empty = torch.from_numpy(~mask.any(axis=0)).repeat_interleave(
+        block[1]).to(dev)
+    check(bool((y[:, empty] == 0).all()),
+          f"block_sparse {label}: an empty block column is not zero")
+    ms = median_ms(lambda: block_sparse.block_sparse_matmul(x, *args),
+                   reps=BS_REPS)
+    plain_ms = median_ms(lambda: ref.block_sparse_matmul_plain(x, *args),
+                         reps=BS_REPS, per_graph=2)
+    w_dense = w.to(dtype).to(dev)      # zero outside the active blocks
+    library_ms = median_ms(lambda: torch.matmul(x, w_dense), reps=BS_REPS)
+    M, K = x.shape
+    bk, bn = block
+    elt = x.element_size()
+    used_k = int(mask.any(axis=1).sum())       # k-blocks any column reads
+    nbytes = (M * used_k * bk + p.n_active * bk * bn
+              + M * p.n_blocks_n * bn) * elt + 16 * p.n_active \
+        + 4 * (p.n_blocks_n + 1)
+    b_ms, b_by = bound_ms(2.0 * M * p.n_active * bk * bn, nbytes,
+                          PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                          else PEAK_F32_FLOPS)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    shape = f"{label} M={M} K={K} N={w.shape[1]} block={bk}x{bn} {dt}"
+    row = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=library_ms, max_abs_err=err,
+               n_active=p.n_active, n_blocks=int(mask.size))
+    print(f"[block_sparse] {shape} active {p.n_active}/{mask.size} "
+          f"max|d|={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) cublas_dense_ms={library_ms:.4f} "
+          f"kernel/cublas={ms / library_ms:.2f} kernel/bound="
+          f"{ms / b_ms:.1f}", flush=True)
+    return row, launches, y
+
+
+def block_sparse_phase(dev, gen):
+    """Parts A (the paper's recipe at ResNet50's 1x1 shapes), B (skipping
+    under block masks) and C (edge cases).  Returns (rows, launches by
+    path)."""
+    from repro_torch.core.quantize import quantize_int7
+    from repro_torch.core.sparsity import (block_sparsity, cluster_rows,
+                                           magnitude_prune)
+    from repro_torch.kernels import block_sparse, ops
+    torch.backends.cuda.matmul.allow_tf32 = False    # f32 stays f32
+    rows, paths = [], {"block_sparse/resnet50_1x1": 0,
+                       "block_sparse/masks": 0, "block_sparse/edges": 0}
+
+    # A. prune to 80 %, INT7 codes, cluster rows; permute w's rows and x's
+    # columns alike
+    for M, K, N in resnet50_1x1_shapes():
+        w = magnitude_prune(torch.randn((K, N), generator=gen), 0.8)
+        codes = quantize_int7(w).values
+        x = torch.randn((M, K), generator=gen)
+        for block in [(64, 64), (128, 128)]:
+            if K % block[0] or N % block[1]:
+                continue
+            before = block_sparsity(codes, block)
+            perm = torch.from_numpy(cluster_rows(codes, block[0]))
+            after = block_sparsity(codes[perm], block)
+            print(f"[block_sparse] A M={M} K={K} N={N} block={block}: block "
+                  f"sparsity {before:.4f} before cluster_rows, {after:.4f} "
+                  f"after", flush=True)
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype).to(dev)
+                row, n, y = check_block_sparse("A", xd[:, perm.to(dev)]
+                                               .contiguous(), w[perm], block,
+                                               dev)
+                paths["block_sparse/resnet50_1x1"] += n
+                # the unpermuted product of the same rounded operands
+                want = (xd.float() @ w.to(dtype).to(dev).float()).to(dtype)
+                ok, d = bs_close(y, want)
+                check(ok, f"block_sparse A M={M} K={K} N={N}: off the "
+                      f"unpermuted x @ w by {d:.3g}")
+                print(f"[block_sparse]   vs unpermuted x @ w: max|d|={d:.3g}",
+                      flush=True)
+                rows.append(dict(row, part="A", block_sparsity_before=before,
+                                 block_sparsity_after=after,
+                                 max_abs_err_unpermuted=d))
+
+    # B. whole blocks zeroed: the time should fall with the active blocks
+    bk, bn = 64, 64
+    for label, M, K, N in BS_MASK_SHAPES:
+        w = torch.randn((K, N), generator=gen)
+        x = torch.randn((M, K), generator=gen)
+        n_blocks = (K // bk) * (N // bn)
+        order = torch.randperm(n_blocks, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            per_block = {}
+            for keep in BS_KEEP:
+                n_keep = max(1, round(keep * n_blocks))
+                kept = torch.zeros(n_blocks, dtype=torch.bool)
+                kept[order[:n_keep]] = True
+                wm = w * kept.reshape(K // bk, N // bn).repeat_interleave(
+                    bk, 0).repeat_interleave(bn, 1)
+                row, n, _ = check_block_sparse(f"B {label} keep {keep}",
+                                               x.to(dtype).to(dev), wm,
+                                               (bk, bn), dev)
+                paths["block_sparse/masks"] += n
+                per_block[keep] = row["ms"] / row["n_active"]
+                rows.append(dict(row, part="B", keep=keep))
+            full = per_block[1.0]
+            dt = "bf16" if dtype == torch.bfloat16 else "f32"
+            print(f"[block_sparse] B {label} {dt}: kernel time per active "
+                  f"block at " + ", ".join(
+                      f"{k:.0%} kept {v * 1e3:.3f} us ({v / full:.2f}x)"
+                      for k, v in per_block.items())
+                  + " (1.00x: time in proportion to the active blocks)",
+                  flush=True)
+
+    # C. edge cases
+    x = torch.randn((98, 256), generator=gen).to(dev)
+    block_sparse.KERNEL.launches = 0
+    y = ops.block_sparse_matmul(x, torch.zeros((256, 128)), (64, 64))
+    torch.cuda.synchronize()
+    check(block_sparse.KERNEL.launches == 0 and y.device == x.device
+          and bool((y == 0).all()) and y.shape == (98, 128),
+          "block_sparse C: an empty mask launched or is not zero")
+    print("[block_sparse] C empty mask: zeros, no launch", flush=True)
+    w = torch.randn((256, 256), generator=gen)
+    w[:, 64:128] = 0.0                               # one empty block column
+    w[64:128, 128:192] = 0.0
+    row, n, y = check_block_sparse("C empty column, ragged M", x, w,
+                                   (64, 64), dev)
+    check(bool((y[:, 64:128] == 0).all()), "block_sparse C: block column 1 "
+          "is not exactly zero")
+    paths["block_sparse/edges"] += n
+    rows.append(dict(row, part="C"))
+    w = torch.randn((480, 400), generator=gen)
+    w[48:96, :] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        row, n, _ = check_block_sparse(
+            "C block 48x80", torch.randn((37, 480), generator=gen)
+            .to(dtype).to(dev), w, (48, 80), dev)
+        paths["block_sparse/edges"] += n
+        rows.append(dict(row, part="C"))
+    # bf16 weights round before the product: 1 * (1 + 2**-9) - 1 * 1 is
+    # 2**-9 in f32 and 0 once the weight has rounded to 1
+    w = torch.zeros((64, 64))
+    w[0, 0], w[1, 0] = 1.0 + 2.0 ** -9, 1.0
+    x = torch.zeros((2, 64))
+    x[:, 0], x[:, 1] = 1.0, -1.0
+    block_sparse.KERNEL.launches = 0
+    y16 = ops.block_sparse_matmul(x.bfloat16().to(dev), w, (64, 64))
+    y32 = ops.block_sparse_matmul(x.to(dev), w, (64, 64))
+    paths["block_sparse/edges"] += block_sparse.KERNEL.launches
+    check(float(y16[0, 0]) == 0.0 and float(y32[0, 0]) == 2.0 ** -9,
+          f"block_sparse C: bf16 weights did not round first "
+          f"({float(y16[0, 0])}, {float(y32[0, 0])})")
+    print("[block_sparse] C bf16 weights round before the product: "
+          f"bf16 {float(y16[0, 0])}, f32 {float(y32[0, 0])}", flush=True)
+    for path, n in paths.items():
+        check(n > 0, f"{path}: the block-sparse kernel never launched")
+    return rows, paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the served paths, full width, on the card
 # ---------------------------------------------------------------------------
 
@@ -977,9 +1209,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from repro_torch.kernels import (_cuda, cfmm_matmul, conv_depthwise,
-                                     conv_implicit, conv_sparse,
-                                     flash_attention, sparse_matvec)
+    from repro_torch.kernels import (_cuda, block_sparse, cfmm_matmul,
+                                     conv_depthwise, conv_implicit,
+                                     conv_sparse, flash_attention,
+                                     sparse_matvec)
     card = gpu_identity()
     print(f"[card] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} | "
@@ -991,7 +1224,8 @@ def main() -> int:
                "sparse_matvec": sparse_matvec.KERNEL,
                "conv_depthwise": conv_depthwise.KERNEL,
                "cfmm_matmul": cfmm_matmul.KERNEL,
-               "flash_attention": flash_attention.KERNEL}
+               "flash_attention": flash_attention.KERNEL,
+               "block_sparse": block_sparse.KERNEL}
     t0 = time.perf_counter()
     logs = _cuda.build_all(kernels.values())
     print(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f}s",
@@ -1018,6 +1252,9 @@ def main() -> int:
     rows["cfmm_matmul"] = [check_cfmm(*s, dev, gen) for s in CFMM_SHAPES]
     print(f"[time] kernel phase done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
+    rows["block_sparse"], bs_paths = block_sparse_phase(dev, gen)
+    print(f"[time] block-sparse phase done at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     served = serve(kernels, card)
     print(f"[time] CNN serve phase done at {time.perf_counter() - t_start:.1f}s",
@@ -1037,6 +1274,8 @@ def main() -> int:
                         "src/repro/kernels/cfmm_matmul.py:44"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:84"),
+        "block_sparse": ("src/repro_torch/csrc/block_sparse.cu",
+                         "src/repro/kernels/block_sparse.py:64"),
     }
     entries = []
     for name, shape_rows in rows.items():
@@ -1051,6 +1290,13 @@ def main() -> int:
         by_path.update({path: v["counts"][name]
                         for path, v in lm_served.items()
                         if v["counts"][name]})
+        status = (f"built, launched on the served paths, equal to its "
+                  f"plain version at {len(shape_rows)} shape(s)")
+        if name == "block_sparse":
+            by_path.update(bs_paths)
+            status = (f"built, launched by the block-sparse phase (no served "
+                      f"path of the JAX package calls it), equal to its "
+                      f"plain version at {len(shape_rows)} shape(s)")
         entries.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -1068,8 +1314,7 @@ def main() -> int:
             "ms_at_library_shapes": (sum(r["ms"] for r in lib_rows)
                                      if lib_rows else None),
             "launches_by_path": by_path,
-            "status": (f"built, launched on the served paths, equal to its "
-                       f"plain version at {len(shape_rows)} shape(s)"),
+            "status": status,
             "shapes": shape_rows,
         })
     serve_line = [{"path": f"{m}/{mode}", "n_stages": n, **v}

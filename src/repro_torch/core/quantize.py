@@ -1,5 +1,6 @@
 """INT7 per-output-channel weight / INT8 activation quantization (ports
-``repro/core/quantize.py``).
+``repro/core/quantize.py``, all but the QAT fake-quant, which belongs to
+the training path).
 
 Weights: symmetric per-output-channel INT7 (|q| <= 63, the range of the
 paper's six ternary residual terms), stored in int8.  Activations: INT8,
@@ -30,6 +31,9 @@ class QTensor:
     values: torch.Tensor   # int8
     scale: torch.Tensor    # f32
     axis: int = -1
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return self.values.to(dtype) * self.scale.to(dtype)
 
 
 def _channel_scale(w: torch.Tensor, axis: int, qmax: int) -> torch.Tensor:
@@ -64,3 +68,29 @@ def quantize_act_int8(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     q = torch.clamp(torch.round(x / scale), -INT8_ACT_MAX, INT8_ACT_MAX)
     return QTensor(q.to(torch.int8), scale, 0 if per_row else -1)
+
+
+def ternary_residual_decompose(q: torch.Tensor, terms: int = 6) -> torch.Tensor:
+    """Decompose INT7 codes into ``terms`` ternary power-of-two residuals.
+
+    Returns t with shape q.shape + (terms,) and t_i in {-1, 0, +1} such that
+    sum_i t_i * 2^i == q exactly.  This is the TRN form the paper's source
+    model used ("6 residual terms (equivalent to INT7)").
+    """
+    sign = torch.sign(q).to(torch.int32)
+    mag = torch.abs(q).to(torch.int32)
+    bits = [(mag >> i) & 1 for i in range(terms)]
+    return torch.stack([b * sign for b in bits], dim=-1).to(torch.int8)
+
+
+def ternary_residual_reconstruct(t: torch.Tensor) -> torch.Tensor:
+    weights = torch.tensor([1 << i for i in range(t.shape[-1])],
+                           dtype=torch.int32, device=t.device)
+    return torch.sum(t.to(torch.int32) * weights, dim=-1, dtype=torch.int32)
+
+
+def quantization_error(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Relative L2 error of INT7 round-trip (paper: 0.22% accuracy loss)."""
+    qt = quantize_int7(w, axis)
+    err = torch.linalg.norm(w - qt.dequantize())
+    return err / torch.clamp_min(torch.linalg.norm(w), 1e-12)

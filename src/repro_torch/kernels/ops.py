@@ -1,6 +1,7 @@
 """The conv, matmul and attention ops (ports the ``conv2d``,
-``conv2d_dw``, ``cfmm_matmul``, ``sparse_cfmm_matmul`` and
-``flash_attention`` parts of ``repro/kernels/ops.py``).
+``conv2d_dw``, ``cfmm_matmul``, ``sparse_cfmm_matmul``,
+``block_sparse_matmul`` and ``flash_attention`` parts of
+``repro/kernels/ops.py``).
 
 Each op prepares its kernel's arguments and calls the kernel's wrapper,
 which dispatches by the tensor's device alone: the plain PyTorch version
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import block_sparse
 from repro_torch.kernels.cfmm_matmul import cfmm_matmul as _cfmm_kernel
 from repro_torch.kernels.conv_depthwise import conv2d_dw as _dw_kernel
 from repro_torch.kernels.conv_implicit import conv2d_implicit
@@ -53,6 +55,37 @@ def sparse_cfmm_matmul(x_q: torch.Tensor, bitmap: torch.Tensor,
         x_q = F.pad(x_q, (0, pad))
     acc = sparse_matvec(x_q.contiguous(), bitmap, values)
     return acc if scale is None else acc.float() * scale
+
+
+def block_sparse_matmul(x: torch.Tensor, w,
+                        block_kn: tuple = (128, 128)) -> torch.Tensor:
+    """x (M, K) @ w (K, N), skipping all-zero constant (bk, bn) blocks.
+
+    ``w`` is a constant (a tensor on any device, or an array): the block
+    mask and the active blocks come from its host copy, and zero blocks
+    are never launched (the paper's dropped MACs).  The weights are cast
+    to x's type before the product (in bf16 they round first); the sum
+    is f32 and rounds once to x's type.  Output columns whose block column
+    has no active block are exact zeros; a wholly empty mask returns zeros
+    without a launch.  Ragged M is masked in the kernel, not padded.
+    x is f32 or bf16: for int8 x the JAX op returns int8, wrapped under
+    one lowering and saturated under the other (ROADMAP queue C), so the
+    port refuses integer x."""
+    if not x.is_floating_point():
+        raise NotImplementedError(
+            f"block_sparse_matmul takes f32 or bf16 x, got {x.dtype}")
+    bk, bn = block_kn
+    K, N = w.shape
+    if K % bk or N % bn:
+        raise AssertionError(((K, N), block_kn))     # the JAX op's assert
+    if x.ndim != 2 or x.shape[1] != K:
+        raise ValueError(f"x {tuple(x.shape)} does not match w {(K, N)}")
+    p = block_sparse.pack_blocks(w, (bk, bn), x.dtype, x.device)
+    if p.n_active == 0:
+        return torch.zeros((x.shape[0], N), dtype=x.dtype, device=x.device)
+    return block_sparse.block_sparse_matmul(x.contiguous(), p.w_blocks,
+                                            p.meta, p.offsets, p.block_kn,
+                                            p.n_blocks_n)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the ported kernels (ports the CNN-path
-oracles of ``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the ported kernels (ports the oracles of
+``repro/kernels/ref.py``).
 
 These are what a kernel wrapper runs for a CPU tensor, and what the CUDA
 kernels are held against on the card.  Integer paths are exact: int8
@@ -62,6 +62,67 @@ def sparse_matvec_ref(x_q: torch.Tensor, bitmap: torch.Tensor,
                        device=bitmap.device)
     dense, _ = expand_bitmap_tile(bitmap, values, base, values.shape[0])
     return int8_matmul_ref(x_q, dense)
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse constant-weight matmul
+# ---------------------------------------------------------------------------
+
+def block_sparse_matmul_plain(x: torch.Tensor, w_blocks: torch.Tensor,
+                              meta: torch.Tensor, offsets: torch.Tensor,
+                              block_kn, n_blocks_n: int) -> torch.Tensor:
+    """The block-sparse kernel's function on its own operands, on any
+    device: per output block column, the f32 sum of ``x``'s k-block times
+    each active weight block, in ascending k, cast once to ``x.dtype``.
+    Block columns without an active block are exact zeros.
+
+    x (M, K); w_blocks (n_active, bk, bn) in plan order (column-major:
+    the blocks of column nb are ``offsets[nb]:offsets[nb + 1]``, ascending
+    k); meta (4, n_active) int32 from ``plan_blocks`` (row 0: k-block);
+    offsets (n_blocks_n + 1,) int32.  Reads no index on the host, so it
+    runs inside a CUDA graph."""
+    M, K = x.shape
+    bk, bn = block_kn
+    n_active = w_blocks.shape[0]
+    acc = torch.zeros((n_blocks_n, M, bn), dtype=torch.float32,
+                      device=x.device)
+    if n_active:
+        xs = x.reshape(M, K // bk, bk)[:, meta[0].long()].float()
+        prods = torch.einsum("mib,ibn->imn", xs, w_blocks.float())
+        start, end = offsets[:-1].long(), offsets[1:].long()
+        for j in range(K // bk):      # the j-th active block of each column
+            idx = start + j
+            term = prods[idx.clamp_max(n_active - 1)]
+            acc = acc + torch.where((idx < end)[:, None, None], term, 0.0)
+    return acc.permute(1, 0, 2).reshape(M, n_blocks_n * bn).to(x.dtype)
+
+
+def block_sparse_matmul_ref(x: torch.Tensor, w_blocks: torch.Tensor,
+                            block_kn, mask) -> torch.Tensor:
+    """x (M, K) @ block-sparse W -> (M, N): the JAX package's oracle.
+
+    w_blocks: (n_active, bk, bn) dense storage of active blocks;
+    mask: (K//bk, N//bn) bool numpy, ROW-major ordering of active blocks.
+    ``plan_blocks`` and ``ops.block_sparse_matmul`` order blocks
+    column-major, so the kernel's operands must not be fed to this.
+    """
+    bk, bn = block_kn
+    Kb, Nb = mask.shape
+    w = torch.zeros((Kb * bk, Nb * bn), dtype=w_blocks.dtype,
+                    device=w_blocks.device)
+    idx = 0
+    for kb in range(Kb):
+        for nb in range(Nb):
+            if mask[kb, nb]:
+                w[kb * bk:(kb + 1) * bk, nb * bn:(nb + 1) * bn] = w_blocks[idx]
+                idx += 1
+    if idx != w_blocks.shape[0]:
+        raise ValueError(f"mask has {idx} active blocks, w_blocks "
+                         f"{w_blocks.shape[0]}")
+    if x.dtype == torch.int8:
+        return int8_matmul_ref(x, w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 # ---------------------------------------------------------------------------

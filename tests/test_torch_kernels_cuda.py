@@ -18,15 +18,17 @@ heads' shapes and ragged ones.  Asserted: int32 accumulators equal,
 its plain version in f32 and bf16 over the JAX kernel test's sweep, the
 LM's served shapes, ragged and rectangular Tq/Tk, windows and Dv != D,
 within the tolerances of ``FLASH_TOL``; the sparse matmul at the LM's
-linear shapes.
+linear shapes; the block-sparse matmul in f32 and bf16 with 100, 50, 20
+and 0 % of its blocks kept, ragged M and blocks that are no multiple of
+its tile, within ``BS_RTOL``/``BS_ATOL``.
 """
 import pytest
 import torch
 
 from repro_torch.core.compiled_linear import _compile_leaf_2d
-from repro_torch.kernels import (cfmm_matmul, conv_depthwise, conv_implicit,
-                                 conv_sparse, flash_attention, ref,
-                                 sparse_matvec)
+from repro_torch.kernels import (block_sparse, cfmm_matmul, conv_depthwise,
+                                 conv_implicit, conv_sparse, flash_attention,
+                                 ops, ref, sparse_matvec)
 
 pytestmark = pytest.mark.cuda
 
@@ -259,3 +261,95 @@ def test_sparse_matvec_matches_plain_at_lm_shapes(dev, M, K, N):
     got = sparse_matvec.sparse_matvec(x, bm, vals)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.sparse_matvec_ref(x, bm, vals))
+
+
+# block-sparse matmul, kernel against plain version: the same f32 terms
+# summed in another order (the kernel one FMA at a time, the plain version
+# block product by block product), then rounded once to x's type.  f32:
+# 1e-5 relative plus 1e-4 absolute; bf16: that plus one output ulp
+# (<= 2**-7 of it), since the two f32 sums may straddle a rounding point.
+BS_RTOL, BS_ATOL = 1e-5, 1e-4
+
+
+def _bs_close(got, want):
+    err = (got.float() - want.float()).abs()
+    tol = BS_ATOL + BS_RTOL * want.float().abs()
+    if want.dtype == torch.bfloat16:
+        tol = tol + want.float().abs() * 2.0 ** -7
+    return bool((err <= tol).all()), float(err.max())
+
+
+def _bs_inputs(M, K, N, block, keep, dtype, dev, seed=0):
+    """Normal x and w with whole (bk, bn) blocks zeroed, as
+    tests/test_kernels.py zeroes them: a seeded mask keeps ``keep`` of
+    the blocks; one block column is emptied whenever blocks are dropped."""
+    bk, bn = block
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((K, N), generator=g)
+    keep_mask = torch.rand((K // bk, N // bn), generator=g) < keep
+    if keep < 1.0:
+        keep_mask[:, 0] = False
+    w *= keep_mask.repeat_interleave(bk, 0).repeat_interleave(bn, 1)
+    x = torch.randn((M, K), generator=g)
+    return x.to(dtype).to(dev), w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("keep", [1.0, 0.5, 0.2, 0.0])
+@pytest.mark.parametrize("M,K,N,block", [
+    (64, 512, 256, (128, 128)),       # tests/test_kernels.py's shapes
+    (8, 256, 128, (128, 128)),
+    (98, 2048, 512, (64, 64)),        # ResNet50 conv5_x, ragged M
+    (1024, 960, 2560, (64, 64)),      # SmolLM-360M gate/up, 1024 tokens
+    (37, 480, 400, (48, 80)),         # blocks no multiple of the tile
+    (130, 96, 72, (32, 24)),
+    (1, 64, 64, (64, 64)),
+])
+def test_block_sparse_matches_plain(dev, M, K, N, block, keep, dtype):
+    x, w = _bs_inputs(M, K, N, block, keep, dtype, dev, seed=M + K + N)
+    p = block_sparse.pack_blocks(w, block, dtype, dev)
+    mask = p.mask
+    args = (p.w_blocks, p.meta, p.offsets, block, p.n_blocks_n)
+    before = block_sparse.KERNEL.launches
+    got = block_sparse.block_sparse_matmul(x, *args)
+    want = ref.block_sparse_matmul_plain(x, *args)
+    torch.cuda.synchronize()
+    assert block_sparse.KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    ok, err = _bs_close(got, want)
+    assert ok, err
+    empty_cols = torch.from_numpy(~mask.any(axis=0)).repeat_interleave(
+        block[1]).to(dev)
+    assert bool((got[:, empty_cols] == 0).all())
+    # the op: the same kernel on the same operands, bit for bit; an empty
+    # mask returns zeros without a launch
+    before = block_sparse.KERNEL.launches
+    via_op = ops.block_sparse_matmul(x, w, block)
+    torch.cuda.synchronize()
+    assert torch.equal(via_op, got)
+    assert block_sparse.KERNEL.launches == before + int(mask.any())
+
+
+def test_block_sparse_rejects_what_it_does_not_take(dev):
+    x, w = _bs_inputs(16, 128, 64, (32, 32), 0.5, torch.float32, dev)
+    p = block_sparse.pack_blocks(w, (32, 32), torch.float32, dev)
+    call = lambda x, wb=p.w_blocks, meta=p.meta, offs=p.offsets: \
+        block_sparse.block_sparse_matmul(x, wb, meta, offs, (32, 32),
+                                         p.n_blocks_n)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        call(x.half(), wb=p.w_blocks.half())
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        call(x, wb=p.w_blocks.bfloat16())
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        call(x, wb=p.w_blocks.cpu())
+    with pytest.raises(ValueError, match="expected shape"):
+        call(x, offs=p.offsets[:-1])                       # bad offsets
+    with pytest.raises(ValueError, match="expected torch.int32"):
+        call(x, offs=p.offsets.long())
+    with pytest.raises(ValueError, match="does not tile"):
+        block_sparse.block_sparse_matmul(x[:, :100].contiguous(),
+                                         p.w_blocks, p.meta, p.offsets,
+                                         (32, 32), p.n_blocks_n)
+    with pytest.raises(NotImplementedError):
+        ops.block_sparse_matmul(x.to(torch.int8), w, (32, 32))

@@ -16,9 +16,9 @@ import torch
 
 from repro_torch.core.compiled_linear import ensure_compiled
 from repro_torch.configs import smollm_360m
-from repro_torch.kernels import (_cuda, cfmm_matmul, conv_depthwise,
-                                 conv_implicit, conv_sparse, flash_attention,
-                                 sparse_matvec)
+from repro_torch.kernels import (_cuda, block_sparse, cfmm_matmul,
+                                 conv_depthwise, conv_implicit, conv_sparse,
+                                 flash_attention, ops, sparse_matvec)
 from repro_torch.launch import mesh, serve, serve_pipeline
 from repro_torch.models import lm, mobilenet_v2, repvgg, resnet
 from repro_torch.serving.engine import Request, ServingEngine
@@ -28,7 +28,8 @@ from repro_torch.serving.pipeline import (PipelineEngine, PipelineRequest,
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 KERNELS = (conv_implicit.KERNEL, conv_sparse.KERNEL, sparse_matvec.KERNEL,
-           conv_depthwise.KERNEL, cfmm_matmul.KERNEL, flash_attention.KERNEL)
+           conv_depthwise.KERNEL, cfmm_matmul.KERNEL, flash_attention.KERNEL,
+           block_sparse.KERNEL)
 CFG = resnet.ResNetConfig(width_mult=0.125, num_classes=10, in_hw=16)
 
 
@@ -158,6 +159,25 @@ def test_lm_driver_serves_on_cpu_without_kernels(monkeypatch, capsys, mode):
     assert all(k._fn is None for k in KERNELS)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_block_sparse_matmul_never_reaches_a_kernel(monkeypatch, dtype):
+    """``ops.block_sparse_matmul`` on CPU tensors takes the plain version:
+    no launch, no kernel library loads."""
+    def refuse(self, *args):
+        raise AssertionError(f"{self.symbol} launched for a CPU tensor")
+
+    monkeypatch.setattr(_cuda.CudaKernel, "launch", refuse)
+    monkeypatch.setattr(block_sparse.KERNEL, "launches", 0)
+    rng = np.random.RandomState(3)
+    w = rng.randn(128, 96).astype(np.float32)
+    w[:64, 32:64] = 0.0
+    x = torch.from_numpy(rng.randn(37, 128).astype(np.float32)).to(dtype)
+    y = ops.block_sparse_matmul(x, torch.from_numpy(w), (64, 32))
+    assert y.dtype == dtype and y.shape == (37, 96)
+    assert block_sparse.KERNEL.launches == 0
+    assert block_sparse.KERNEL._fn is None
+
+
 def test_lm_config_and_unported_parts_raise():
     """SmolLM-360M's published shape; parts of the LM stack the port does
     not have yet raise and name the queue that holds them."""
@@ -202,7 +222,7 @@ def test_kernel_library_name_tracks_its_sources():
     """The build is keyed by a hash of the sources, so an edited kernel
     never loads a stale library; every kernel builds from csrc/."""
     names = {k.lib_path.name for k in KERNELS}
-    assert len(names) == len(KERNELS) == 6
+    assert len(names) == len(KERNELS) == 7
     for k in KERNELS:
         assert (_cuda.CSRC / f"{k.source}.cu").exists()
         assert k.lib_path.parent == _cuda.BUILD_DIR
