@@ -12,10 +12,14 @@
    at most 1 on at most 1e-5 of them; ``sparse_matvec`` also at the LM's
    linear shapes; ``flash_attention`` in bf16 and f32 at SmolLM-360M's
    prefill shapes, rectangular Tq < Tk, a non-causal Tk = 1500, a
-   Gemma3-like window and Dv != D, within ``FLASH_TOL``; times each
-   (median of CUDA-event timings of CUDA-graph replays) beside its bound
-   and, where one PyTorch call computes the same function, that call
-   (SDPA for attention);
+   Gemma3-like window and Dv != D, within ``FLASH_TOL``; prints the
+   variant each shape runs (flash: the tensor-core ``mma`` or the
+   CUDA-core ``fma`` kernel; ``sparse_matvec``: ``rows`` or ``split`` and
+   its split over K); times each (median of CUDA-event timings of
+   CUDA-graph replays) beside its bound and, where one PyTorch call
+   computes the same function, that call (SDPA for attention;
+   ``torch._int_mm`` on the dense or unpacked codes for the 1x1 convs
+   and ``sparse_matvec``), checked against the kernel's int32 output;
 2b. drives ``ops.block_sparse_matmul`` (no served path of the JAX package
    calls it) in f32 and bf16, TF32 off: (A) the paper's recipe at every
    distinct shape of ResNet50's 1x1 convs (224 px, microbatch 2) —
@@ -109,8 +113,8 @@ SERVED = [
     ("repvgg_a0", "int8", (1, 2)),
 ]
 # the port's kernels as torch.profiler names them
-OUR_KERNELS = ("repro::conv_kernel", "sparse_matvec_kernel",
-               "conv_dw_kernel", "cfmm_matmul_kernel", "flash_kernel")
+OUR_KERNELS = ("repro::conv_kernel", "sparse_mma_kernel", "conv_dw_kernel",
+               "cfmm_matmul_kernel", "flash_kernel", "flash_mma_kernel")
 
 
 class CheckFailed(AssertionError):
@@ -271,6 +275,7 @@ def conv_bytes(c, weight_bytes):
 def check_conv_kernel(kind, c):
     """One conv kernel at one shape against its plain version, on the
     card.  Returns the shape's row for the kernels line."""
+    from repro_torch.core.compiled_linear import bitmap_unpack
     from repro_torch.kernels import conv_implicit, conv_sparse
     kw = dict(k=c["k"], stride=c["stride"], relu=c["relu"])
     if kind == "conv_implicit":
@@ -296,14 +301,17 @@ def check_conv_kernel(kind, c):
     ops_needed = 2.0 * m_total * nnz          # nonzero weights only
     b_ms, b_by = bound_ms(ops_needed, conv_bytes(c, wbytes))
     library_ms = None
-    if (kind == "conv_implicit" and c["k"] == 1 and c["stride"] == 1
-            and m_total > 16):
+    if c["k"] == 1 and c["stride"] == 1 and m_total > 16:
         # a 1x1 stride-1 conv's int32 product is one torch._int_mm of the
-        # flattened input (yardstick only; the port never calls it)
+        # flattened input with the dense codes (for conv_sparse, the codes
+        # its packed operands stand for); yardstick only, the port never
+        # calls it
         a = c["x"].reshape(m_total, c["c_in"])
-        b = c["w_sp"].t().contiguous().t()
+        codes = (c["w_sp"] if kind == "conv_implicit"
+                 else bitmap_unpack(c["bitmap"], c["values"]))
+        b = codes.t().contiguous().t()
         check(torch.equal(torch._int_mm(a, b).reshape(acc.shape), acc),
-              f"{c['name']}: torch._int_mm disagrees with the kernel")
+              f"{kind} {c['name']}: torch._int_mm disagrees with the kernel")
         library_ms = median_ms(lambda: torch._int_mm(a, b))
     print(f"[kernel] {kind:14s} {c['name']:16s} acc_equal=True "
           f"max|dy|={dy:.3g} ({ulps} ulp) y_q_mismatch={mism} "
@@ -416,7 +424,13 @@ SPARSE_SHAPES = [("head", 2, 2048, 1000), ("LM q/o", 1024, 960, 960),
 
 
 def check_sparse_matvec(label, M, K, N, dev, gen):
-    from repro_torch.core.compiled_linear import _compile_leaf_2d, act_quant
+    """The sparse matmul at one shape against its plain version (int32
+    products equal), with the variant and split its ``plan`` picks; the
+    library yardstick is one ``torch._int_mm`` of x with the dense codes
+    the packed operands stand for, M zero-padded to the 32 rows it
+    needs."""
+    from repro_torch.core.compiled_linear import (_compile_leaf_2d, act_quant,
+                                                  bitmap_unpack)
     from repro_torch.kernels import ref, sparse_matvec
     w = torch.randn((K, N), generator=gen) / K ** .5
     packed = _compile_leaf_2d(w, "sparse_cfmm", 0.8)
@@ -436,12 +450,21 @@ def check_sparse_matvec(label, M, K, N, dev, gen):
     nnz = popcount(bm)
     b_ms, b_by = bound_ms(2.0 * M * nnz, x_q.numel() + bm.numel()
                           + vals.numel() + M * N * 4)
+    a = F.pad(x_q, (0, 0, 0, max(0, 32 - M))).contiguous()
+    b = bitmap_unpack(bm, vals).t().contiguous().t()
+    check(torch.equal(torch._int_mm(a, b)[:M], out),
+          f"sparse_matvec {label}: torch._int_mm disagrees with the kernel")
+    library_ms = median_ms(lambda: torch._int_mm(a, b))
+    variant, splits, per = sparse_matvec.plan(M, K, N)
     shape = f"{label} M={M} K={K} N={N}"
-    print(f"[kernel] sparse_matvec  {shape} equal=True "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} "
-          f"({b_by}) library_ms=null", flush=True)
+    print(f"[kernel] sparse_matvec  {shape} equal=True variant={variant} "
+          f"splits={splits}x{per} chunks kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"library_ms={fmt(library_ms)} kernel/library="
+          f"{ms / library_ms:.2f}", flush=True)
     return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, max_abs_err=err)
+                bound_by=b_by, library_ms=library_ms, max_abs_err=err,
+                variant=variant, splits=splits)
 
 
 # flash attention: (label, B, KVH, G, Tq, Tk, D, Dv, causal, window)
@@ -513,12 +536,14 @@ def check_flash(spec, dtype, dev, gen):
         print(f"[kernel]   SDPA vs plain max|d|={lib_err:.3g}", flush=True)
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     shape = f"{label} {dt}"
-    print(f"[kernel] flash_attention {shape:32s} max|d|={float(err.max()):.3g}"
-          f" kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f}"
-          f" ({b_by}) library_ms={fmt(library_ms)}", flush=True)
+    variant = fa.variant(dtype, D, Dv)
+    print(f"[kernel] flash_attention {shape:32s} variant={variant} "
+          f"max|d|={float(err.max()):.3g} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"library_ms={fmt(library_ms)}", flush=True)
     return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms,
-                max_abs_err=float(err.max()))
+                max_abs_err=float(err.max()), variant=variant)
 
 
 # ---------------------------------------------------------------------------

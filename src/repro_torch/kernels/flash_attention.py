@@ -8,23 +8,28 @@ SmolLM-360M q is ``(1, 5, 3, T, 64)`` bf16, causal, with T the prompt's
 bucket, one launch per layer.  Decode does not use it (its one query row
 goes through the plain ``decode_attention``).
 
-The kernel (``csrc/flash_attention.cu``) computes what the Pallas kernel
+The kernels (``csrc/flash_attention.cu``) compute what the Pallas kernel
 computes: f32 scores ``q.k * 1/sqrt(D)``, masks by absolute position
 (queries at the end of the keys), an online softmax with f32 ``m``/``l``,
 ``p`` rounded to v's type before ``p.v``, and ``acc / max(l, 1e-30)`` in
-v's type.  One block per (q tile of all G groups, batch x kv head), so
-each staged K/V tile serves every query group; tiles above the diagonal
-or left of the window are skipped; ragged edges are masked, never
-padded.  It takes f32 and bf16, any Tq <= Tk, G <= 32 and D, Dv <= 256
-(Dv may differ from D).
+v's type.  A block holds a q tile of all G groups of one batch x kv
+head, so each staged K/V tile serves every query group; tiles above the
+diagonal or left of the window are skipped; ragged edges are masked,
+never padded.  They take f32 and bf16, any Tq <= Tk, G <= 32 and D,
+Dv <= 256 (Dv may differ from D).
 
 What bounds it on an H100: at the served shapes, operations (the score
-and ``p.v`` flops of the visible tiles at 989 TFLOP/s bf16) over bytes
-(q, k, v and o once at 3.35 TB/s).  This first kernel does f32 FMAs on
-the CUDA cores, so it sits well above that bound (PERF.md).
+and ``p.v`` flops of the visible pairs at 989 TFLOP/s bf16) over bytes
+(q, k, v and o once at 3.35 TB/s).  ``variant`` is the rule that picks
+the kernel: ``mma`` (bf16 with D and Dv each 16, 32, 64 or 128, every
+served shape) runs both products on the tensor cores (``mma.sync``
+m16n8k16, 64-row q tiles, 64-key K/V tiles in a two-stage ``cp.async``
+ring); ``fma`` (f32, whose 2e-5 tolerance TF32 would not hold, and the
+bf16 shapes outside that rule, such as D = 192 or 256) is the CUDA-core
+kernel with f32 FMAs.
 
 For a CPU tensor the wrapper runs ``flash_attention_plain``; for a CUDA
-tensor it launches the kernel or raises.
+tensor it launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -33,14 +38,25 @@ import torch
 from repro_torch.kernels._cuda import F32, I, P, CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
-                    (P,) * 4 + (I,) * 9 + (F32, P))
+                    (P,) * 4 + (I,) * 10 + (F32, P))
 NEG_INF = -1e30
-MAX_G = 32          # a block holds 32 query rows: bq = 32 // G positions
+MAX_G = 32          # the fma kernel's block holds 32 query rows
 MAX_D = 256
+MMA_D = (16, 32, 64, 128)   # the mma kernel's instances (Q and the output
+                            # in registers: D = 256 would not fit)
+VARIANTS = {"fma": 0, "mma": 1}
 
 
 def _scale(D: int) -> float:
     return 1.0 / (D ** 0.5)
+
+
+def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """Which kernel takes a call: ``mma`` (tensor cores) for bf16 with D
+    and Dv each 16, 32, 64 or 128, else ``fma`` (CUDA cores)."""
+    if dtype == torch.bfloat16 and D in MMA_D and Dv in MMA_D:
+        return "mma"
+    return "fma"
 
 
 def position_mask(Tq: int, Tk: int, causal: bool, window, device):
@@ -96,8 +112,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_cuda("q", q, q.dtype)
     check_cuda("k", k, q.dtype, (B, KVH, Tk, D))
     check_cuda("v", v, q.dtype, (B, KVH, Tk, Dv))
+    kind = variant(q.dtype, D, Dv)
+    if kind == "mma":                    # the kernel copies 16-byte rows
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     out = torch.empty((B, KVH, G, Tq, Dv), dtype=v.dtype, device=q.device)
     KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), B * KVH, G, Tq, Tk, D,
                   Dv, int(causal), -1 if window is None else int(window),
-                  int(q.dtype == torch.bfloat16), _scale(D))
+                  int(q.dtype == torch.bfloat16), VARIANTS[kind], _scale(D))
     return out

@@ -17,8 +17,9 @@ heads' shapes and ragged ones.  Asserted: int32 accumulators equal,
 ``fmaf`` against ``ref.fma_f32``).  The flash-attention kernel against
 its plain version in f32 and bf16 over the JAX kernel test's sweep, the
 LM's served shapes, ragged and rectangular Tq/Tk, windows and Dv != D,
-within the tolerances of ``FLASH_TOL``; the sparse matmul at the LM's
-linear shapes; the block-sparse matmul in f32 and bf16 with 100, 50, 20
+both kernels (the tensor-core ``mma`` and the CUDA-core ``fma``), within
+the tolerances of ``FLASH_TOL``; the sparse matmul at the LM's linear
+shapes, in both variants, with and without a split over K; the block-sparse matmul in f32 and bf16 with 100, 50, 20
 and 0 % of its blocks kept, ragged M and blocks that are no multiple of
 its tile, within ``BS_RTOL``/``BS_ATOL``.
 """
@@ -220,6 +221,17 @@ def _flash_inputs(B, KVH, G, Tq, Tk, D, Dv, dtype, dev, seed=0):
     (1, 1, 4, 1024, 1024, 256, 256, True, 512),
     (1, 2, 2, 100, 100, 192, 128, True, None),
     (1, 1, 32, 33, 50, 32, 32, True, 9),
+    # the mma kernel's edges: Tq no multiple of 16 or 64, Tq < Tk, the
+    # causal edge inside a warp's 16 rows (G = 1: one position per row;
+    # G = 3: 21 positions per 64-row tile, one row padding), Dv != D,
+    # a window narrower than a key tile; and shapes the rule sends to
+    # the CUDA-core kernel (D = 24, not a multiple of 16)
+    (1, 1, 1, 40, 40, 64, 64, True, None),
+    (1, 2, 3, 77, 77, 64, 64, True, None),
+    (1, 5, 3, 300, 1000, 64, 64, True, None),
+    (1, 2, 3, 130, 130, 128, 64, True, 24),
+    (1, 2, 2, 65, 65, 16, 32, False, None),
+    (1, 2, 2, 33, 70, 24, 40, True, None),
 ])
 def test_flash_attention_matches_plain(dev, B, KVH, G, Tq, Tk, D, Dv,
                                        causal, window, dtype):
@@ -236,6 +248,19 @@ def test_flash_attention_matches_plain(dev, B, KVH, G, Tq, Tk, D, Dv,
     tol = FLASH_TOL[dtype] + (want.float().abs() * 2.0 ** -7
                               if dtype == torch.bfloat16 else 0.0)
     assert bool((err <= tol).all()), float(err.max())
+
+
+def test_flash_attention_mma_takes_unaligned_views(dev):
+    """A q, k or v that starts off a 16-byte boundary (a view into a
+    larger buffer) is copied first: the mma kernel reads 16-byte rows."""
+    q, k, v = _flash_inputs(1, 5, 3, 64, 64, 64, 64, torch.bfloat16, dev)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    q_off = buf[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 and q_off.is_contiguous()
+    got = flash_attention.flash_attention(q_off, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, flash_attention.flash_attention(q, k, v))
 
 
 def test_flash_attention_rejects_what_it_does_not_take(dev):
@@ -261,6 +286,47 @@ def test_sparse_matvec_matches_plain_at_lm_shapes(dev, M, K, N):
     got = sparse_matvec.sparse_matvec(x, bm, vals)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.sparse_matvec_ref(x, bm, vals))
+
+
+@pytest.mark.parametrize("N", [1000, 33])
+@pytest.mark.parametrize("K", [960, 1288])
+@pytest.mark.parametrize("M", [1, 2, 4, 15, 16, 17, 64, 1000, 1024])
+def test_sparse_matvec_variants_and_splits(dev, M, K, N):
+    """Both variants (``split`` at M <= 16, ``rows`` above: ragged row
+    tiles at 17, 1000), a ragged last K chunk (1288 = 10 chunks of 128
+    and 8 rows), a ragged column tile (N = 33), and K split over the
+    grid wherever ``plan`` splits it (N = 33 always; M <= 64 at
+    N = 1000)."""
+    g = torch.Generator().manual_seed(M + K + N)
+    packed = _compile_leaf_2d(torch.randn((K, N), generator=g),
+                              "sparse_cfmm", 0.8)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    x, bm, vals = (t.to(dev).contiguous() for t in
+                   (x, packed["bitmap"], packed["values"]))
+    before = sparse_matvec.KERNEL.launches
+    got = sparse_matvec.sparse_matvec(x, bm, vals)
+    torch.cuda.synchronize()
+    assert sparse_matvec.KERNEL.launches == before + 1
+    assert torch.equal(got, ref.sparse_matvec_ref(x, bm, vals))
+
+
+def test_sparse_matvec_clamps_past_keep_k_and_takes_unaligned_x(dev):
+    """Columns with more nonzeros than ``keep_k`` read the last packed
+    value for the rest, as the plain version does; an x that starts off
+    an 8-byte boundary is copied first."""
+    from repro_torch.core.compiled_linear import bitmap_pack
+    g = torch.Generator().manual_seed(7)
+    codes = torch.randint(-63, 64, (512, 70), generator=g, dtype=torch.int8)
+    bm, vals = bitmap_pack(codes, 40)          # ~500 nonzeros per column
+    for M in (3, 40):
+        x = torch.randint(-127, 128, (M, 512), generator=g, dtype=torch.int8)
+        buf = torch.empty(x.numel() + 1, dtype=torch.int8, device=dev)
+        x_off = buf[1:].view(M, 512)
+        x_off.copy_(x.to(dev))
+        assert x_off.data_ptr() % 8
+        got = sparse_matvec.sparse_matvec(x_off, bm.to(dev), vals.to(dev))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref.sparse_matvec_ref(x, bm, vals))
 
 
 # block-sparse matmul, kernel against plain version: the same f32 terms
