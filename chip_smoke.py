@@ -18,8 +18,11 @@
    its split over K); times each (median of CUDA-event timings of
    CUDA-graph replays) beside its bound and, where one PyTorch call
    computes the same function, that call (SDPA for attention;
-   ``torch._int_mm`` on the dense or unpacked codes for the 1x1 convs
-   and ``sparse_matvec``), checked against the kernel's int32 output;
+   ``torch._int_mm`` on the dense or unpacked codes for ``sparse_matvec``
+   and every conv shape — of an im2col built outside the timed region,
+   K zero-padded to a multiple of 8), checked against the kernel's int32
+   output; the conv lines also print each shape's launch plan
+   (``conv_implicit.plan``: copy widths, tiles, splits x chunks);
 2b. drives ``ops.block_sparse_matmul`` (no served path of the JAX package
    calls it) in f32 and bf16, TF32 off: (A) the paper's recipe at every
    distinct shape of ResNet50's 1x1 convs (224 px, microbatch 2) —
@@ -113,7 +116,7 @@ SERVED = [
     ("repvgg_a0", "int8", (1, 2)),
 ]
 # the port's kernels as torch.profiler names them
-OUR_KERNELS = ("repro::conv_kernel", "sparse_mma_kernel", "conv_dw_kernel",
+OUR_KERNELS = ("conv_mma_kernel", "sparse_mma_kernel", "conv_dw_kernel",
                "cfmm_matmul_kernel", "flash_kernel", "flash_mma_kernel")
 
 
@@ -218,6 +221,8 @@ CONV_SHAPES = [
     ("mbv2 stem", 3, 2, 3, 32, 224, True, None),
     ("mbv2 block14/pj", 1, 1, 576, 96, 14, False, "int8"),
     ("repvgg stage5_1", 3, 2, 192, 1280, 14, True, None),
+    ("conv5_x_2/b", 3, 1, 512, 512, 7, True, None),
+    ("conv4_x_2/a", 1, 1, 1024, 256, 14, True, None),
 ]
 # MobileNetV2's depthwise 3x3 convs at 224 px: (C, input hw, stride)
 DW_SHAPES = [(32, 112, 1), (96, 112, 2), (144, 56, 1), (144, 56, 2),
@@ -272,6 +277,25 @@ def conv_bytes(c, weight_bytes):
     return b
 
 
+def im2col_operands(c, codes):
+    """``torch._int_mm`` operands of one conv: the (M, K8) int8 im2col of
+    the SAME-padded input in spatial-major order (row = tap*C + c) and
+    the (K8, n_out) codes column-major, K zero-padded to K8, the next
+    multiple of 8."""
+    from repro_torch.kernels import ref
+    k, stride, C = c["k"], c["stride"], c["c_in"]
+    K = k * k * C
+    K8 = -(-K // 8) * 8
+    xp, h_out, w_out = ref.pad_same_nhwc(c["x"], k, stride)
+    cols = [xp[:, dy:dy + (h_out - 1) * stride + 1:stride,
+               dx:dx + (w_out - 1) * stride + 1:stride, :]
+            for dy in range(k) for dx in range(k)]
+    a = torch.cat(cols, dim=-1).reshape(-1, K)
+    a = F.pad(a, (0, K8 - K)).contiguous()
+    b = F.pad(codes[:K], (0, 0, 0, K8 - K))
+    return a, b.t().contiguous().t()
+
+
 def check_conv_kernel(kind, c):
     """One conv kernel at one shape against its plain version, on the
     card.  Returns the shape's row for the kernels line."""
@@ -300,27 +324,28 @@ def check_conv_kernel(kind, c):
     m_total = c["N"] * c["h_out"] ** 2
     ops_needed = 2.0 * m_total * nnz          # nonzero weights only
     b_ms, b_by = bound_ms(ops_needed, conv_bytes(c, wbytes))
-    library_ms = None
-    if c["k"] == 1 and c["stride"] == 1 and m_total > 16:
-        # a 1x1 stride-1 conv's int32 product is one torch._int_mm of the
-        # flattened input with the dense codes (for conv_sparse, the codes
-        # its packed operands stand for); yardstick only, the port never
-        # calls it
-        a = c["x"].reshape(m_total, c["c_in"])
-        codes = (c["w_sp"] if kind == "conv_implicit"
-                 else bitmap_unpack(c["bitmap"], c["values"]))
-        b = codes.t().contiguous().t()
-        check(torch.equal(torch._int_mm(a, b).reshape(acc.shape), acc),
-              f"{kind} {c['name']}: torch._int_mm disagrees with the kernel")
-        library_ms = median_ms(lambda: torch._int_mm(a, b))
+    # yardstick: one torch._int_mm of the im2col of the input (built
+    # here, outside the timed region) with the dense codes (for
+    # conv_sparse, the codes its packed operands stand for), K zero-padded
+    # to the multiple of 8 it needs; the port never calls it
+    a, b = im2col_operands(c, c["w_sp"] if kind == "conv_implicit"
+                           else bitmap_unpack(c["bitmap"], c["values"]))
+    check(torch.equal(torch._int_mm(a, b).reshape(acc.shape), acc),
+          f"{kind} {c['name']}: torch._int_mm disagrees with the kernel")
+    library_ms = median_ms(lambda: torch._int_mm(a, b))
+    cplan = conv_implicit.plan(c["N"], c["h_out"], c["h_out"], c["c_in"],
+                               c["k"], c["c_out"],
+                               sparse=kind == "conv_sparse")
+    plan_txt = (f"vec={cplan.vec}/{cplan.bvec} tiles={cplan.m_tiles}x"
+                f"{cplan.n_tiles} splits={cplan.splits}x{cplan.chunks_per}")
     print(f"[kernel] {kind:14s} {c['name']:16s} acc_equal=True "
           f"max|dy|={dy:.3g} ({ulps} ulp) y_q_mismatch={mism} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={b_ms:.5f} ({b_by}) library_ms={fmt(library_ms)}",
-          flush=True)
+          f"bound_ms={b_ms:.5f} ({b_by}) library_ms={fmt(library_ms)} "
+          f"{plan_txt}", flush=True)
     return dict(shape=c["name"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, max_abs_err=dy,
-                ulps=ulps, y_q_mismatch=mism)
+                ulps=ulps, y_q_mismatch=mism, plan=list(cplan))
 
 
 def check_depthwise(C, hw, stride, dev, gen):
@@ -771,7 +796,8 @@ def profile_serve(eng, images, label):
     """Where a served batch's time goes: one more run of ``eng`` under
     ``torch.profiler``; prints wall time, the card's busy time (sum of
     kernel times on the one stream) and the kernels that take most.
-    Returns (wall ms, busy ms) or None when the profiler saw no kernels."""
+    Returns (wall ms, busy ms, conv_mma_kernel ms) or None when the
+    profiler saw no kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.pipeline import PipelineRequest
     reqs = [PipelineRequest(rid=i, images=im) for i, im in enumerate(images)]
@@ -793,6 +819,11 @@ def profile_serve(eng, images, label):
         return None
     ours_ms = sum(e.self_device_time_total for e in events
                   if any(k in e.key for k in OUR_KERNELS)) / 1e3
+    # every CNN path runs its convs on the tensor-core conv kernel
+    conv_ms = sum(e.self_device_time_total for e in events
+                  if "conv_mma_kernel" in e.key) / 1e3
+    check(conv_ms > 0, f"{label}: the profile shows no conv_mma_kernel")
+    print(f"[profile] {label}: conv_mma_kernel {conv_ms:.3f} ms", flush=True)
     print(f"[profile] {label} n_stages=1: wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%; the port's kernels "
@@ -801,7 +832,7 @@ def profile_serve(eng, images, label):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:5d}  {e.key[:90]}", flush=True)
-    return wall_ms, busy_ms
+    return wall_ms, busy_ms, conv_ms
 
 
 def model_config(model):
@@ -923,7 +954,8 @@ def serve(kernels, card):
             if n_stages == 1:
                 prof = profile_serve(eng, images, f"{model}/{mode}")
                 if prof is not None:
-                    res["profile_wall_ms"], res["device_busy_ms"] = prof
+                    (res["profile_wall_ms"], res["device_busy_ms"],
+                     res["conv_kernel_ms"]) = prof
             results[(model, mode, n_stages)] = res
         if len(by_stages) == 2:
             check(np.array_equal(by_stages[1], by_stages[2]),

@@ -1,8 +1,9 @@
-// Bitmap-packed implicit-GEMM int8 SAME conv + fused Collector (see
-// conv_common.cuh): the weights arrive as (bitmap, values) and expand
-// into shared memory one K chunk at a time.  Plain C interface for
-// ctypes; returns the cudaGetLastError() of the launch.
-#include "conv_common.cuh"
+// Bitmap-packed implicit-GEMM int8 SAME conv + fused Collector on the
+// int8 tensor cores (see conv_mma.cuh): the weights arrive as (bitmap,
+// values) and expand into shared memory one K chunk at a time.  Plain C
+// interface for ctypes; returns the cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue (1) for a plan the kernel does not take.
+#include "conv_mma.cuh"
 
 extern "C" int conv_sparse_launch(
     const int8_t* x, const uint8_t* bitmap, const int8_t* values,
@@ -10,7 +11,8 @@ extern "C" int conv_sparse_launch(
     const int8_t* sc_q, const float* sc_scale, float* y, float* amax,
     int32_t* acc_out, int N, int H, int W, int C, int n_out, int k,
     int stride, int pad_top, int pad_left, int h_out, int w_out, int Kb8,
-    int keep_k, int relu, void* stream) {
+    int keep_k, int relu, int vec, int bvec, int vec_epi, int splits,
+    int chunks_per, void* stream) {
   repro::ConvArgs a{};
   a.x = x; a.bitmap = bitmap; a.values = values; a.eff_scale = eff_scale;
   a.eff_bias = eff_bias; a.shortcut = shortcut; a.sc_q = sc_q;
@@ -20,5 +22,8 @@ extern "C" int conv_sparse_launch(
   a.stride = stride; a.pad_top = pad_top; a.pad_left = pad_left;
   a.h_out = h_out; a.w_out = w_out; a.K = k * k * C; a.Kb8 = Kb8;
   a.keep_k = keep_k; a.relu = relu;
-  return repro::launch_conv<true>(a, static_cast<cudaStream_t>(stream));
+  repro::conv_mma::Plan p{N * h_out * w_out, splits, chunks_per, bvec,
+                          vec_epi};
+  return repro::conv_mma::launch<true>(a, p, vec,
+                                       static_cast<cudaStream_t>(stream));
 }

@@ -63,6 +63,9 @@ def conv2d_dw(x_q: torch.Tensor, w_tap: torch.Tensor,
                                return_acc=return_acc)
     C = x_q.shape[3]
     check_cuda("w_tap", w_tap, torch.int8, (k * k, C))
+    if C % 4 == 0 and x_q.data_ptr() % 4:
+        raise ValueError("x_q: the kernel reads 4-byte words; the tensor "
+                         "must start 4-byte aligned")
     sc, geom, y, amax, acc = conv_outputs(x_q, eff_scale, eff_bias,
                                           shortcut, k, stride, C,
                                           return_acc)

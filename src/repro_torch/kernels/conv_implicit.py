@@ -1,27 +1,36 @@
 """Dense implicit-GEMM int8 SAME conv + fused Collector — CUDA kernel
-wrapper (ports ``repro/kernels/conv_implicit.py``).
+wrapper (ports ``repro/kernels/conv_implicit.py``), and the plan that
+both conv kernels launch by.
 
 Replaces ``conv2d_implicit_pallas`` (repro/kernels/conv_implicit.py:144,
 with ``conv_tap_macs`` :44 and ``collector_epilogue`` :73).  The kernel is
-``csrc/conv_implicit.cu`` over the template in ``csrc/conv_common.cuh``:
-int8 taps gathered from the unpadded NHWC input (SAME padding by bounds
-checks), int32 ``__dp4a`` accumulation, and the Collector
+``csrc/conv_implicit.cu`` over the template in ``csrc/conv_mma.cuh``: the
+conv as one GEMM of every output pixel of every image (M) by the output
+channels (N) over K = k*k*C, in 64 x 64 tiles that may cross images; the
+implicit im2col tile of the unpadded NHWC input and the weight rows come
+into a ring of shared-memory stages by ``cp.async`` (the SAME padding is
+its zero fill) several K chunks ahead of the MACs, which run on the int8
+tensor cores (``mma.sync.m16n8k32``) into int32; then the Collector
 ``y = fmaf(float(acc), eff_scale[image], eff_bias)`` (+ shortcut) (ReLU)
-with a per-image ``max|y|`` for the int8 requantization pass.  Unlike the
-TPU kernel it writes ``y`` in plain NHWC (no strip blocking) and sizes its
-own tiles to shared memory.
+with a per-image ``max|y|`` for the int8 requantization pass.  Where the
+output tiles alone would not fill the card, ``plan`` splits K over the
+grid: a tile's splits form one thread-block cluster, which adds their
+int32 partial sums (exact in any order) in distributed shared memory
+and runs the Collector.  Unlike the TPU kernel it writes ``y`` in plain
+NHWC (no strip blocking).
 
 What bounds it on an H100: the larger of its int8 operations over the
 1,979 TOP/s tensor-core peak and its bytes (int8 input and weights, f32
-output and shortcut, each moved once) over 3.35 TB/s; ``chip_smoke.py``
-computes both per main-path shape.  This first kernel runs ``__dp4a`` on
-the CUDA cores, not the tensor cores, so it sits well above that bound
-(times in PERF.md); ``mma``/``wgmma`` tiles are later work.
+output and shortcut, each moved once) over 3.35 TB/s — bytes at every
+served shape; ``chip_smoke.py`` computes both per main-path shape and
+PERF.md keeps the kernel's times beside them.
 
 For a CPU tensor the wrapper runs the plain version (kernels/ref.py);
 for a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +38,59 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel("conv_implicit", "conv_implicit_launch",
-                    (P,) * 10 + (I,) * 12 + (P,))
+                    (P,) * 10 + (I,) * 17 + (P,))
+SMS = 132            # streaming multiprocessors of an H100 SXM
+BLOCK_M = 64         # output pixels per tile (rows may span images)
+BLOCK_N = 64         # output channels per tile
+K_CHUNK = 64         # K rows per ring stage (the ring's depth is the
+                     # kernel's own)
+MAX_SPLITS = 16      # a tile's splits form one thread-block cluster
+MIN_CHUNKS = 3       # fewest chunks per split for a second wave (sparse)
+
+
+class ConvPlan(NamedTuple):
+    """How one conv launches.  ``vec``: bytes per input copy (16, 4 or
+    1; C is a multiple); ``bvec``: bytes per weight or bitmap copy along
+    the output channels (n_out is a multiple); the grid is ``m_tiles`` x
+    ``n_tiles`` x ``splits``, split ``s`` walking K chunks
+    ``[s * chunks_per, (s + 1) * chunks_per)``."""
+    vec: int
+    bvec: int
+    m_tiles: int
+    n_tiles: int
+    splits: int
+    chunks_per: int
+
+
+def _align(n: int) -> int:
+    return 16 if n % 16 == 0 else (4 if n % 4 == 0 else 1)
+
+
+def plan(N: int, h_out: int, w_out: int, C: int, k: int, n_out: int,
+         sparse: bool = False) -> ConvPlan:
+    """The launch of one conv from its shape: 64 x 64 output tiles over
+    the N * h_out * w_out pixels of the batch; K = k*k*C (sparse: padded
+    to the bitmap's multiple of 8) in chunks of 64 rows, split over the
+    grid where the tiles alone fill less than a wave of the SMs: dense,
+    as many splits as one block per SM needs; sparse, whose chunks each
+    wait on their code gathers, as many as two blocks per SM need while
+    each split keeps ``MIN_CHUNKS`` chunks, else one block per SM.  The
+    chunks are spread evenly over at most ``MAX_SPLITS`` splits (one
+    cluster); no split is empty."""
+    m_tiles = -(-N * h_out * w_out // BLOCK_M)
+    n_tiles = -(-n_out // BLOCK_N)
+    k_rows = -(-k * k * C // 8) * 8 if sparse else k * k * C
+    n_chunks = -(-k_rows // K_CHUNK)
+    tiles = m_tiles * n_tiles
+    for waves in ((2, 1) if sparse else (1,)):
+        want = min(MAX_SPLITS, -(-waves * SMS // tiles))
+        per = max(1, n_chunks // want)
+        if per >= MIN_CHUNKS:
+            break
+    splits = min(MAX_SPLITS, -(-n_chunks // per))
+    per = -(-n_chunks // splits)                # even: the same splits
+    return ConvPlan(_align(C), _align(n_out), m_tiles, n_tiles,
+                    -(-n_chunks // per), per)
 
 
 def conv_geometry(x_q: torch.Tensor, k: int, stride: int) -> tuple:
@@ -60,9 +121,6 @@ def conv_outputs(x_q, eff_scale, eff_bias, shortcut, k, stride, n_out,
     pad_top, pad_left, h_out, w_out = conv_geometry(x_q, k, stride)
     out_shape = (N, h_out, w_out, n_out)
     check_cuda("x_q", x_q, torch.int8)
-    if C % 4 == 0 and x_q.data_ptr() % 4:
-        raise ValueError("x_q: the kernel reads 4-byte words; the tensor "
-                         "must start 4-byte aligned")
     check_cuda("eff_scale", eff_scale, torch.float32, (N, n_out))
     check_cuda("eff_bias", eff_bias, torch.float32, (n_out,))
     sc = (None, None, None)
@@ -81,6 +139,35 @@ def conv_outputs(x_q, eff_scale, eff_bias, shortcut, k, stride, n_out,
            if return_acc else None)
     geom = (N, H, W, C, n_out, k, stride, pad_top, pad_left, h_out, w_out)
     return tuple(ptr(t) for t in sc), geom, y, amax, acc
+
+
+def conv_launch(kernel: CudaKernel, x_q, weights: tuple, eff_scale,
+                eff_bias, shortcut, *, k: int, stride: int, n_out: int,
+                relu: bool, return_acc: bool, cplan: ConvPlan,
+                sparse_ints: tuple = ()):
+    """Launch a conv kernel of ``csrc/conv_mma.cuh`` by ``cplan``:
+    ``weights`` are the weight-side tensors in the C entry point's order
+    (dense ``(w_sp,)``, sparse ``(bitmap, values)``; the first one is
+    read ``cplan.bvec`` bytes at a time), ``sparse_ints`` the sparse
+    entry point's ``(Kb8, keep_k)``.  A tensor that does not start on the
+    copy width is copied first."""
+    if x_q.data_ptr() % cplan.vec:
+        x_q = x_q.clone()
+    if weights[0].data_ptr() % cplan.bvec:
+        weights = (weights[0].clone(),) + tuple(weights[1:])
+    sc, geom, y, amax, acc = conv_outputs(x_q, eff_scale, eff_bias,
+                                          shortcut, k, stride, n_out,
+                                          return_acc)
+    # the epilogue's 8-channel vector loads and stores
+    sc_t = shortcut if isinstance(shortcut, (tuple, list)) else (shortcut,)
+    vec_epi = n_out % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (eff_scale, eff_bias, *sc_t)
+        if t is not None)
+    kernel.launch(ptr(x_q), *map(ptr, weights), ptr(eff_scale),
+                  ptr(eff_bias), *sc, ptr(y), ptr(amax), ptr(acc), *geom,
+                  *sparse_ints, int(relu), cplan.vec, cplan.bvec,
+                  int(vec_epi), cplan.splits, cplan.chunks_per)
+    return (y, amax, acc) if return_acc else (y, amax)
 
 
 def conv2d_implicit_plain(x_q, w_sp, eff_scale, eff_bias, shortcut=None, *,
@@ -112,11 +199,11 @@ def conv2d_implicit(x_q: torch.Tensor, w_sp: torch.Tensor,
         return conv2d_implicit_plain(x_q, w_sp, eff_scale, eff_bias,
                                      shortcut, k=k, stride=stride,
                                      relu=relu, return_acc=return_acc)
+    N, _, _, C = x_q.shape
     n_out = w_sp.shape[1]
-    check_cuda("w_sp", w_sp, torch.int8, (k * k * x_q.shape[3], n_out))
-    sc, geom, y, amax, acc = conv_outputs(x_q, eff_scale, eff_bias,
-                                          shortcut, k, stride, n_out,
-                                          return_acc)
-    KERNEL.launch(ptr(x_q), ptr(w_sp), ptr(eff_scale), ptr(eff_bias), *sc,
-                  ptr(y), ptr(amax), ptr(acc), *geom, int(relu))
-    return (y, amax, acc) if return_acc else (y, amax)
+    check_cuda("w_sp", w_sp, torch.int8, (k * k * C, n_out))
+    _, _, h_out, w_out = conv_geometry(x_q, k, stride)
+    return conv_launch(KERNEL, x_q, (w_sp,), eff_scale, eff_bias, shortcut,
+                       k=k, stride=stride, n_out=n_out, relu=relu,
+                       return_acc=return_acc,
+                       cplan=plan(N, h_out, w_out, C, k, n_out))

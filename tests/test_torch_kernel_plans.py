@@ -1,19 +1,24 @@
 """The rules by which the port's CUDA wrappers pick a kernel variant and
 its grid, on the CPU: ``flash_attention.variant`` (tensor-core ``mma``
-or CUDA-core ``fma``) and ``sparse_matvec.plan`` (``rows`` or ``split``
-and the split of K over the grid).  The kernels themselves run only on
-the card (tests/test_torch_kernels_cuda.py); here the split-K
-decomposition the sparse kernel uses — each split's start in the packed
-values found by a popcount of the bitmap bytes before it, chunks of 128
-rows expanded with the running nonzero count, partial products added —
-is replayed with the plain expansion and held to
-``ref.sparse_matvec_ref`` bit for bit.
+or CUDA-core ``fma``), ``sparse_matvec.plan`` (``rows`` or ``split``
+and the split of K over the grid) and ``conv_implicit.plan`` (the copy
+widths, tiles and split of K of both conv kernels).  The kernels
+themselves run only on the card (tests/test_torch_kernels_cuda.py);
+here the split-K decompositions the kernels use — each split's start in
+the packed values found by a popcount of the bitmap bytes before it,
+chunks expanded with the running nonzero count, partial products
+added — are replayed with the plain expansion and held to
+``ref.sparse_matvec_ref``, ``ref.conv2d_int8_ref`` and
+``ref.conv2d_sparse_int8_ref`` bit for bit; so is the conv epilogue's
+per-image ``amax`` over output tiles that cross images.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.compiled_linear import _compile_leaf_2d, bitmap_pack
-from repro_torch.kernels import flash_attention, ref, sparse_matvec
+from repro_torch.kernels import (conv_implicit, flash_attention, ref,
+                                 sparse_matvec)
 from repro_torch.kernels.bitmap import expand_bitmap_tile
 
 
@@ -125,3 +130,297 @@ def test_split_k_decomposition_keeps_the_keep_k_clamp():
     want = ref.sparse_matvec_ref(x, bm, vals)
     for s, p in [(4, 1), (2, 2), (1, 4)]:
         assert torch.equal(_split_k_replay(x, bm, vals, s, p), want)
+
+
+# ---------------------------------------------------------------------------
+# conv_implicit.plan: the launch of both conv kernels (csrc/conv_mma.cuh)
+# ---------------------------------------------------------------------------
+
+def _served_convs(model):
+    """(N, h_out, w_out, C, k, n_out) of every conv of a served model at
+    224 px and microbatch 2, from its graph."""
+    if model == "resnet50":
+        from repro_torch.configs.resnet50_compiled import CONFIG
+    elif model == "mobilenet_v2":
+        from repro_torch.configs.mobilenet_v2_compiled import CONFIG
+    else:
+        from repro_torch.configs.repvgg_a0_compiled import CONFIG
+    g = CONFIG.graph()
+    info = g.shapes()
+    assert g.in_hw == 224
+    return sorted({(2, info[n.name].hw, info[n.name].hw, n.c_in, n.k,
+                    n.c_out) for n in g.nodes if n.op == "conv"})
+
+
+def _n_chunks(C, k, sparse):
+    rows = k * k * C
+    rows = -(-rows // 8) * 8 if sparse else rows
+    return -(-rows // conv_implicit.K_CHUNK)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("model", ["resnet50", "mobilenet_v2", "repvgg_a0"])
+def test_conv_plan_at_served_shapes(model, sparse):
+    """At every served conv shape the plan covers K exactly (no empty
+    split; at most one cluster of splits), fills at least one wave of
+    the SMs or has one chunk per split, copies as wide as C and n_out
+    allow, and tiles M and N."""
+    shapes = _served_convs(model)
+    assert len(shapes) >= 7
+    for N, h, w, C, k, n_out in shapes:
+        p = conv_implicit.plan(N, h, w, C, k, n_out, sparse=sparse)
+        n_chunks = _n_chunks(C, k, sparse)
+        assert 1 <= p.splits <= conv_implicit.MAX_SPLITS
+        assert p.chunks_per >= 1
+        assert (p.splits - 1) * p.chunks_per < n_chunks
+        # even: the fewest chunks per split that this many splits allow
+        assert p.chunks_per == -(-n_chunks // p.splits)
+        assert n_chunks <= p.splits * p.chunks_per
+        tiles = p.m_tiles * p.n_tiles
+        assert tiles * p.splits >= conv_implicit.SMS or p.chunks_per == 1
+        assert (p.m_tiles - 1) * 64 < N * h * w <= p.m_tiles * 64
+        assert (p.n_tiles - 1) * 64 < n_out <= p.n_tiles * 64
+        assert C % p.vec == 0 and n_out % p.bvec == 0
+        assert p.vec == (16 if C % 16 == 0 else 4 if C % 4 == 0 else 1)
+        assert p.bvec == (16 if n_out % 16 == 0 else
+                          4 if n_out % 4 == 0 else 1)
+
+
+# (N, h_out, w_out, C, k, n_out), sparse -> (vec, bvec, m_tiles, n_tiles,
+# splits, chunks_per) at chip_smoke.py's conv shapes: dense splits
+# for one wave, sparse for two where each split keeps 3 chunks
+CONV_PLANS = [
+    ((2, 112, 112, 3, 7, 64), False, (1, 16, 392, 1, 1, 3)),   # stem
+    ((2, 56, 56, 64, 3, 64), False, (16, 16, 98, 1, 3, 3)),    # conv2_x_2/b
+    ((2, 56, 56, 64, 3, 64), True, (16, 16, 98, 1, 3, 3)),
+    ((2, 28, 28, 256, 1, 128), False, (16, 16, 25, 2, 4, 1)),  # conv3_x_1/a
+    ((2, 14, 14, 256, 3, 256), False, (16, 16, 7, 4, 6, 6)),   # conv4_x_2/b
+    ((2, 14, 14, 256, 3, 256), True, (16, 16, 7, 4, 12, 3)),
+    ((2, 7, 7, 512, 1, 2048), False, (16, 16, 2, 32, 4, 2)),   # conv5_x_1/c
+    ((2, 7, 7, 512, 1, 2048), True, (16, 16, 2, 32, 4, 2)),
+    ((2, 112, 112, 3, 3, 32), False, (1, 16, 392, 1, 1, 1)),   # mbv2 stem
+    ((2, 14, 14, 576, 1, 96), False, (16, 16, 7, 2, 9, 1)),    # block14/pj
+    ((2, 7, 7, 192, 3, 1280), False, (16, 16, 2, 20, 5, 6)),   # repvgg 5_1
+    ((2, 7, 7, 512, 3, 512), False, (16, 16, 2, 8, 9, 8)),     # conv5_x_2/b
+    ((2, 7, 7, 512, 3, 512), True, (16, 16, 2, 8, 15, 5)),
+    ((2, 14, 14, 1024, 1, 256), False, (16, 16, 7, 4, 6, 3)),  # conv4_x_2/a
+    ((2, 56, 56, 24, 1, 144), False, (4, 16, 98, 3, 1, 1)),    # mbv2 C = 24
+]
+
+
+@pytest.mark.parametrize("shape,sparse,want", CONV_PLANS)
+def test_conv_plan_at_chip_smoke_shapes(shape, sparse, want):
+    assert tuple(conv_implicit.plan(*shape, sparse=sparse)) == want
+
+
+def _im2col(x, k, stride):
+    """(N*h*w, k*k*C) int8 im2col of the SAME-padded NHWC input,
+    spatial-major (row = tap*C + c): the kernel's A operand."""
+    xp, h_out, w_out = ref.pad_same_nhwc(x, k, stride)
+    cols = [xp[:, dy:dy + (h_out - 1) * stride + 1:stride,
+               dx:dx + (w_out - 1) * stride + 1:stride, :]
+            for dy in range(k) for dx in range(k)]
+    return torch.cat(cols, dim=-1).reshape(-1, k * k * x.shape[3])
+
+
+SWAR_ROWS = 8192        # bitmap rows per pass of the 16-byte prefix path
+
+
+def _swar_counts(rows8):
+    """Per-column nonzero bits of bitmap rows (R, 16 q) as the kernel's
+    16-byte prefix path counts them: per-byte popcounts of each word
+    (SWAR), added in 16-bit lanes (bytes 0 and 2, 1 and 3) of uint32
+    words by each of the 4 warps (row r to warp r % 32 // 8) over a pass
+    of ``SWAR_ROWS`` rows, each pass's lanes then added into int32."""
+    R, n = rows8.shape
+    w = rows8.numpy().astype(np.uint32).reshape(R, n // 4, 4)
+    w = w[..., 0] | w[..., 1] << 8 | w[..., 2] << 16 | w[..., 3] << 24
+    x = w - ((w >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    warp = np.arange(R) % 32 // 8
+    total = np.zeros((n // 4, 4), dtype=np.int64)
+    for r0 in range(0, R, SWAR_ROWS):
+        for wp in range(4):
+            xs = x[r0:r0 + SWAR_ROWS][warp[r0:r0 + SWAR_ROWS] == wp]
+            ev = (xs & 0x00FF00FF).sum(0, dtype=np.uint64) & 0xFFFFFFFF
+            od = ((xs >> 8) & 0x00FF00FF).sum(0, dtype=np.uint64) & 0xFFFFFFFF
+            total += np.stack([ev & 0xFFFF, od & 0xFFFF, ev >> 16, od >> 16],
+                              -1).astype(np.int64)
+    return torch.from_numpy(total.reshape(1, -1).astype(np.int32))
+
+
+def _conv_split_k_replay(x, k, stride, cplan, w_sp=None, bitmap=None,
+                         values=None):
+    """The conv kernels' decomposition with the plain expansion: the
+    im2col rows, K in chunks of 64 split into ``cplan.splits`` ranges of
+    ``cplan.chunks_per``; sparse, each split's start counts from a
+    popcount of the bitmap rows before it (the 16-byte path's SWAR count
+    where n_out % 16 == 0), each chunk expanded with the running count;
+    the splits' int32 partials added.  Returns NHWC int32."""
+    N, H, W, C = x.shape
+    a = _im2col(x, k, stride).double()
+    K = a.shape[1]
+    kc = conv_implicit.K_CHUNK
+    sparse = bitmap is not None
+    n_out = bitmap.shape[1] if sparse else w_sp.shape[1]
+    n_chunks = _n_chunks(C, k, sparse)
+    a = torch.nn.functional.pad(a, (0, n_chunks * kc - K))
+    out = torch.zeros((a.shape[0], n_out), dtype=torch.int64)
+    for s in range(cplan.splits):
+        c_lo = s * cplan.chunks_per
+        c_hi = min(c_lo + cplan.chunks_per, n_chunks)
+        assert c_lo < c_hi
+        if sparse:
+            before = bitmap[:c_lo * kc // 8]
+            if n_out % 16 == 0:
+                base = _swar_counts(before)
+            else:
+                bits = sum(((before.int() >> j) & 1) for j in range(8))
+                base = bits.sum(0, keepdim=True, dtype=torch.int32)
+        part = torch.zeros_like(out)
+        for c in range(c_lo, c_hi):
+            if sparse:
+                w, base = expand_bitmap_tile(
+                    bitmap[c * kc // 8:(c + 1) * kc // 8], values, base,
+                    values.shape[0])
+            else:
+                w = w_sp[c * kc:(c + 1) * kc]
+            part += (a[:, c * kc:c * kc + w.shape[0]] @ w.double()).long()
+        out += part
+    _, _, h_out, w_out = conv_implicit.conv_geometry(x, k, stride)
+    return out.to(torch.int32).reshape(N, h_out, w_out, n_out)
+
+
+def _conv_case(N, hw, C, n_out, k, stride, seed=0, keep_k=None):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-127, 128, (N, hw, hw, C), generator=g,
+                      dtype=torch.int8)
+    w = torch.randn((C * k * k, n_out), generator=g)
+    dense = _compile_leaf_2d(w, "int8", 0.8, conv_k=k)["values"]
+    packed = _compile_leaf_2d(w, "sparse_cfmm", 0.8, conv_k=k)
+    bm, vals = packed["bitmap"], packed["values"]
+    if keep_k is not None:               # more nonzeros than keep_k
+        codes = ref.to_spatial_major(torch.randint(
+            -63, 64, (C * k * k, n_out), generator=g, dtype=torch.int8),
+            k, C)
+        codes = torch.nn.functional.pad(codes, (0, 0, 0, (-len(codes)) % 8))
+        bm, vals = bitmap_pack(codes, keep_k)
+    return x, dense, bm, vals
+
+
+# (N, input hw, C, n_out, k, stride): the C = 3 byte gather, C = 8
+# (4-byte copies, n_out % 16 != 0), C % 16 == 0 with N = 3, N = 1 and a
+# ragged n_out (byte loads of B), a K deep enough for 72 chunks
+REPLAY_SHAPES = [(2, 17, 3, 16, 7, 2), (2, 9, 8, 72, 3, 1),
+                 (3, 8, 32, 64, 3, 2), (1, 7, 16, 130, 1, 1),
+                 (3, 9, 48, 40, 3, 1), (2, 3, 512, 24, 3, 1)]
+
+
+def _plans(x, k, stride, n_out, sparse):
+    """The shape's plan, no split, one chunk per split, and three
+    splits."""
+    N, _, _, C = x.shape
+    _, _, h, w = conv_implicit.conv_geometry(x, k, stride)
+    p = conv_implicit.plan(N, h, w, C, k, n_out, sparse=sparse)
+    n = _n_chunks(C, k, sparse)
+    per3 = -(-n // 3)
+    return {p, p._replace(splits=1, chunks_per=n),
+            p._replace(splits=n, chunks_per=1),
+            p._replace(splits=-(-n // per3), chunks_per=per3)}
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("N,hw,C,n_out,k,stride", REPLAY_SHAPES)
+def test_conv_split_k_replay_matches_plain(N, hw, C, n_out, k, stride,
+                                          sparse):
+    x, dense, bm, vals = _conv_case(N, hw, C, n_out, k, stride,
+                                    seed=N + hw + C + n_out)
+    if sparse:
+        want = ref.conv2d_sparse_int8_ref(x, bm, vals, k, stride)
+        kw = dict(bitmap=bm, values=vals)
+    else:
+        want = ref.conv2d_int8_ref(x, dense, k, stride)
+        kw = dict(w_sp=dense)
+    for p in _plans(x, k, stride, n_out, sparse):
+        got = _conv_split_k_replay(x, k, stride, p, **kw)
+        assert torch.equal(got, want), p
+
+
+@pytest.mark.parametrize("n_out", [20, 64])
+def test_conv_split_k_replay_keeps_the_keep_k_clamp(n_out):
+    """Columns with more nonzeros than keep_k: every split starts from
+    the column's full count (byte and 16-byte prefix paths) and clamps
+    to the last value, as one pass does."""
+    x, _, bm, vals = _conv_case(2, 5, 64, n_out, 3, 1, seed=5, keep_k=40)
+    assert int(sum(((bm.int() >> j) & 1) for j in range(8)).sum(0).max()) > 40
+    want = ref.conv2d_sparse_int8_ref(x, bm, vals, 3, 1)
+    for p in _plans(x, 3, 1, n_out, True):
+        got = _conv_split_k_replay(x, 3, 1, p, bitmap=bm, values=vals)
+        assert torch.equal(got, want), p
+
+
+def test_swar_prefix_counts_hold_to_the_lane_limit():
+    """The 16-bit lanes of the 16-byte prefix path hold 8 bits a byte
+    over any number of bitmap rows: a warp's lane sums at most 2048 rows
+    of a pass (16384), where one lane over 40000 full rows would wrap
+    (80000 a warp)."""
+    g = torch.Generator().manual_seed(0)
+    rand = torch.randint(0, 256, (40000, 32), generator=g, dtype=torch.uint8)
+    full = torch.full((40000, 32), 255, dtype=torch.uint8)
+    for rows in (rand, full, full[:SWAR_ROWS], rand[:3]):
+        want = sum(((rows.int() >> j) & 1) for j in range(8)).sum(0)
+        assert torch.equal(_swar_counts(rows)[0], want.int())
+
+
+def _tile_collector(acc, eff_scale, eff_bias, shortcut, relu, block_m):
+    """The kernel's epilogue by output tiles of ``block_m`` rows over all
+    N*h*w pixels: each row's image picks its eff_scale (and int8
+    shortcut scale); per tile, each row's max|y|, then a max over each
+    image's run of rows, folded into that image's amax."""
+    N, h, w, n_out = acc.shape
+    M, m_img = N * h * w, h * w
+    flat = acc.reshape(M, n_out)
+    img = torch.arange(M) // m_img
+    y = ref.fma_f32(flat.float(), eff_scale[img], eff_bias)
+    if isinstance(shortcut, tuple):
+        q, s = shortcut
+        y = ref.fma_f32(q.reshape(M, n_out).float(), s[img][:, None], y)
+    elif shortcut is not None:
+        y = y + shortcut.reshape(M, n_out)
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    amax = torch.zeros(N)
+    for m0 in range(0, M, block_m):
+        rows = torch.arange(m0, min(m0 + block_m, M))
+        row_max = y[rows].abs().amax(1)
+        for i in img[rows].unique():
+            amax[i] = torch.maximum(amax[i], row_max[img[rows] == i].max())
+    return y.reshape(N, h, w, n_out), amax
+
+
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("N,hw", [(3, 7), (2, 9), (1, 5), (5, 3)])
+def test_conv_tiles_across_images_keep_per_image_amax(N, hw, sc_kind, relu):
+    """Tiles of 64 rows that cross image boundaries (7x7 = 49 rows per
+    image; 3x3 = 9, so one tile holds five images): ``y`` and the
+    per-image ``amax`` equal the plain Collector's, bit for bit."""
+    g = torch.Generator().manual_seed(N * hw)
+    n_out = 24
+    acc = torch.randint(-20000, 20000, (N, hw, hw, n_out), generator=g,
+                        dtype=torch.int32)
+    eff = 1e-3 * torch.rand((N, n_out), generator=g)
+    bias = 0.1 * torch.randn((n_out,), generator=g)
+    sc = None
+    if sc_kind == "f32":
+        sc = torch.randn((N, hw, hw, n_out), generator=g)
+    elif sc_kind == "int8":
+        sc = (torch.randint(-127, 128, (N, hw, hw, n_out), generator=g,
+                            dtype=torch.int8), torch.rand((N,), generator=g))
+    y_p, amax_p = conv_implicit.plain_collector(acc, eff, bias, sc, relu,
+                                                False)
+    y, amax = _tile_collector(acc, eff, bias, sc, relu,
+                              conv_implicit.BLOCK_M)
+    assert torch.equal(y, y_p)
+    assert torch.equal(amax, amax_p)

@@ -10,7 +10,13 @@ the port need not have.)
 
 The geometry sweep mirrors the JAX package's kernel tests: k in {1, 3, 7}
 x stride in {1, 2}, odd and even maps, channel counts that are and are
-not tile multiples, every shortcut form; the depthwise kernel at
+not tile multiples, every shortcut form; the conv kernels also at every
+branch of their launch plan (``conv_implicit.plan``: 16-byte, 4-byte and
+byte copies of the input and of the weights, N = 1 and 3, output tiles
+across images and a ragged last tile, n_out off multiples of 8, K split
+over the grid at full-width ResNet50 7x7 and 14x14 shapes, the sparse
+split's popcount start past 8192 bitmap rows), and a split launch's
+CUDA-graph replay equal to the eager call; the depthwise kernel at
 MobileNetV2's channel counts and ragged ones; the cfmm matmul at the
 heads' shapes and ragged ones.  Asserted: int32 accumulators equal,
 ``y`` and the per-image amax equal (both sides round the Collector once,
@@ -41,9 +47,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(k, stride, c_in, c_out, hw, sc_kind, dev, seed=0):
+def _case(k, stride, c_in, c_out, hw, sc_kind, dev, seed=0, N=2):
     g = torch.Generator().manual_seed(seed)
-    N = 2
     x = torch.randint(-127, 128, (N, hw, hw, c_in), generator=g,
                       dtype=torch.int8)
     w = torch.randn((c_in * k * k, c_out), generator=g)
@@ -85,6 +90,153 @@ def test_conv_kernels_match_plain(dev, k, stride, c_in, c_out, hw, sc_kind,
         assert torch.equal(acc, acc_p)
         assert torch.equal(y, y_p)
         assert torch.equal(amax, amax_p)
+
+
+def _conv_pairs():
+    return ((conv_implicit.conv2d_implicit,
+             conv_implicit.conv2d_implicit_plain, conv_implicit.KERNEL,
+             False),
+            (conv_sparse.conv2d_sparse, conv_sparse.conv2d_sparse_plain,
+             conv_sparse.KERNEL, True))
+
+
+def _launch(kernel, x, wts, eff, bias, sc, cplan, **kw):
+    """A conv kernel's launch under ``cplan`` rather than the wrapper's
+    plan (``kw``: k, stride, relu, return_acc)."""
+    ints = ((wts[0].shape[0], wts[1].shape[0])
+            if kernel is conv_sparse.KERNEL else ())
+    return conv_implicit.conv_launch(kernel, x, wts, eff, bias, sc,
+                                     n_out=wts[-1].shape[1], cplan=cplan,
+                                     sparse_ints=ints, **kw)
+
+
+def _check_conv_plans(case, k, stride, relu, variants):
+    """Both conv kernels, through the wrapper (the shape's plan) and
+    under ``variants(plan, n_chunks)``, ``torch.equal`` to the plain
+    version in acc, y, amax; one launch each."""
+    x, codes, bitmap, values, eff, bias, sc = case
+    N, _, _, C = x.shape
+    _, _, h, w = conv_implicit.conv_geometry(x, k, stride)
+    kw = dict(k=k, stride=stride, relu=relu, return_acc=True)
+    seen = []
+    for kern, plain, kernel, sparse in _conv_pairs():
+        wts = (bitmap, values) if sparse else (codes,)
+        p = conv_implicit.plan(N, h, w, C, k, codes.shape[1], sparse=sparse)
+        rows = k * k * C
+        n_chunks = -(-(-(-rows // 8) * 8 if sparse else rows) // 64)
+        want = plain(x, *wts, eff, bias, sc, **kw)
+        for cp in [p, *variants(p, n_chunks)]:
+            before = kernel.launches
+            got = (kern(x, *wts, eff, bias, sc, **kw) if cp is p else
+                   _launch(kernel, x, wts, eff, bias, sc, cp, **kw))
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), cp
+            seen.append(cp)
+    return seen
+
+
+def _splits(p, n):
+    per3 = -(-n // 3)
+    return [p._replace(splits=1, chunks_per=n),
+            p._replace(splits=n, chunks_per=1),
+            p._replace(splits=-(-n // per3), chunks_per=per3)]
+
+
+@pytest.mark.parametrize("k,stride,c_in,c_out,hw,N", [
+    (7, 2, 3, 64, 23, 2),       # byte gather (C = 3), 16-byte weights
+    (3, 2, 3, 32, 20, 3),       # C = 3, N = 3: tiles cross images
+    (3, 1, 8, 20, 9, 2),        # 4-byte copies, n_out % 8 != 0
+    (1, 1, 24, 144, 11, 1),     # C = 24, N = 1, ragged M
+    (3, 1, 16, 72, 7, 3),       # C % 16 == 0, 4-byte weights
+    (3, 2, 64, 130, 9, 2),      # byte weight loads (n_out = 130)
+    (1, 2, 32, 96, 13, 3),      # strided 1x1, N = 3
+])
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv_kernels_every_plan_branch(dev, k, stride, c_in, c_out, hw, N,
+                                        sc_kind, relu):
+    case = _case(k, stride, c_in, c_out, hw, sc_kind, dev,
+                 seed=k + c_in + c_out + hw, N=N)
+    seen = _check_conv_plans(case, k, stride, relu, _splits)
+    assert any(p.splits > 1 for p in seen) or k * k * c_in <= 64
+
+
+@pytest.mark.parametrize("k,c_in,c_out,hw", [
+    (3, 512, 512, 7),           # conv5_x_2/b: K = 4608, 16 tiles
+    (3, 256, 256, 14),          # conv4_x_2/b
+    (1, 1024, 256, 14),         # conv4_x_2/a
+    (1, 2048, 512, 7),          # conv5_x_2/a
+    (1, 512, 2048, 7),          # conv5_x_2/c
+])
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+def test_conv_kernels_split_k_at_resnet50_small_maps(dev, k, c_in, c_out,
+                                                     hw, sc_kind):
+    """Full-width ResNet50 shapes at microbatch 2, where the plan splits K
+    over the grid; also with about twice the splits (one cluster at
+    most)."""
+    case = _case(k, 1, c_in, c_out, hw, sc_kind, dev, seed=c_in + hw)
+    def more(p, n):                     # half the chunks per split, within
+        per = max(-(-n // conv_implicit.MAX_SPLITS), p.chunks_per // 2, 1)
+        return [p._replace(splits=-(-n // per), chunks_per=per)]
+    seen = _check_conv_plans(case, k, 1, True, more)
+    assert all(p.splits > 1 for p in seen)
+
+
+def test_conv_split_k_graph_replay_equals_eager(dev):
+    """A split launch (a cluster per tile) keeps no state between calls:
+    a second launch and CUDA-graph replays give the eager outputs."""
+    x, codes, bitmap, values, eff, bias, sc = _case(3, 1, 256, 256, 14,
+                                                    "int8", dev, seed=3)
+    kw = dict(k=3, stride=1, relu=True, return_acc=True)
+    for kern, _, _, sparse in _conv_pairs():
+        wts = (bitmap, values) if sparse else (codes,)
+        first = kern(x, *wts, eff, bias, sc, **kw)
+        again = kern(x, *wts, eff, bias, sc, **kw)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = kern(x, *wts, eff, bias, sc, **kw)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        for a, b, c in zip(first, again, captured):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_conv_kernels_refuse_a_plan_they_do_not_take(dev):
+    x, codes, *_, eff, bias, _ = _case(3, 1, 8, 16, 5, None, dev)
+    p = conv_implicit.plan(2, 5, 5, 8, 3, 16)
+    kw = dict(k=3, stride=1, relu=True, return_acc=False)
+    for bad in (p._replace(vec=16),                  # C = 8: not 16-byte
+                p._replace(splits=3, chunks_per=1),  # an empty split
+                p._replace(splits=1, chunks_per=1)): # K = 72: 2 chunks
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            _launch(conv_implicit.KERNEL, x, (codes,), eff, bias, None, bad,
+                    **kw)
+    # more splits than one cluster holds (K = 4608: 72 chunks)
+    x, codes, *_, eff, bias, _ = _case(3, 1, 512, 64, 3, None, dev)
+    p = conv_implicit.plan(2, 3, 3, 512, 3, 64)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _launch(conv_implicit.KERNEL, x, (codes,), eff, bias, None,
+                p._replace(splits=18, chunks_per=4), **kw)
+
+
+def test_conv_sparse_split_start_past_8192_bitmap_rows(dev):
+    """K = 73728 (9216 bitmap rows, 16 splits of 72 chunks): the later
+    splits' 16-byte popcount start runs over two passes of its 16-bit
+    lanes; acc, y, amax equal the plain version's."""
+    x, _, bitmap, values, eff, bias, sc = _case(3, 1, 8192, 16, 3, "int8",
+                                                dev, seed=11)
+    p = conv_implicit.plan(2, 3, 3, 8192, 3, 16, sparse=True)
+    assert p.bvec == 16 and (p.splits - 1) * p.chunks_per * 8 > 8192
+    kw = dict(k=3, stride=1, relu=True, return_acc=True)
+    got = conv_sparse.conv2d_sparse(x, bitmap, values, eff, bias, sc, **kw)
+    want = conv_sparse.conv2d_sparse_plain(x, bitmap, values, eff, bias, sc,
+                                           **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 10), (2, 2048, 1000),
@@ -143,6 +295,35 @@ def test_conv_depthwise_matches_plain(dev, stride, C, hw, sc_kind, relu):
     assert torch.equal(acc, acc_p)
     assert torch.equal(y, y_p)
     assert torch.equal(amax, amax_p)
+
+
+@pytest.mark.parametrize("C", [13, 96])
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+def test_conv_depthwise_unchanged_by_the_shared_epilogue(dev, C, sc_kind):
+    """The depthwise kernel shares conv_common.cuh's Collector with the
+    tensor-core conv kernel: with N = 3, ReLU off and every shortcut
+    form it stays bit-equal to its plain version."""
+    g = torch.Generator().manual_seed(C)
+    N, hw = 3, 10
+    x = torch.randint(-127, 128, (N, hw, hw, C), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-63, 64, (9, C), generator=g, dtype=torch.int8)
+    eff = 1e-3 * torch.rand((N, C), generator=g)
+    bias = 0.1 * torch.randn((C,), generator=g)
+    sc = None
+    if sc_kind == "f32":
+        sc = torch.randn((N, hw, hw, C), generator=g).to(dev)
+    elif sc_kind == "int8":
+        sc = (torch.randint(-127, 128, (N, hw, hw, C), generator=g,
+                            dtype=torch.int8).to(dev),
+              torch.rand((N,), generator=g).to(dev))
+    x, w, eff, bias = (t.to(dev).contiguous() for t in (x, w, eff, bias))
+    kw = dict(k=3, stride=1, relu=False, return_acc=True)
+    got = conv_depthwise.conv2d_dw(x, w, eff, bias, sc, **kw)
+    want = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, sc, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("C,hw,stride", [
