@@ -9,8 +9,10 @@
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the served paths give it (N = 2 images, per-row scales): int32
    accumulators equal, ``y`` within 1 ulp, requantized int8 codes off by
-   at most 1 on at most 1e-5 of them; ``sparse_matvec`` also at the LM's
-   linear shapes; ``flash_attention`` in bf16 and f32 at SmolLM-360M's
+   at most 1 on at most 1e-5 of them; ``sparse_matvec`` and
+   ``cfmm_matmul`` (the int8 and cfmm modes' product) also at the LM's
+   linear shapes, ``cfmm_matmul`` with its plan (variant, tiles,
+   splits); ``flash_attention`` in bf16 and f32 at SmolLM-360M's
    prefill shapes, rectangular Tq < Tk, a non-causal Tk = 1500, a
    Gemma3-like window and Dv != D, within ``FLASH_TOL``; prints the
    variant each shape runs (flash: the tensor-core ``mma`` or the
@@ -33,7 +35,9 @@
    conv5_x, SmolLM-360M's gate/up at 1024 tokens) with 100, 50 and 20 %
    of their 64 x 64 blocks kept, printing kernel time per active block;
    (C) an empty mask (zeros, no launch), an empty block column, ragged
-   M, a 48 x 80 block and bf16 weights that round.  Each call's output
+   M, a 48 x 80 block and bf16 weights that round; each line with its
+   plan (``block_sparse.plan``: variant, tiles, splits), and the bf16 and
+   f32 sums apart.  Each call's output
    is held to the kernel's plain version within ``BS_RTOL``/``BS_ATOL``
    (and part A's to the unpermuted ``x @ w``), and timed beside its
    bound, the plain version and one cuBLAS ``torch.matmul`` of x with
@@ -53,11 +57,14 @@
    49152; seeded random weights initialised and compiled on the card)
    through the LM ``ServingEngine`` in ``int8`` and ``sparse_cfmm``: 8
    requests of 37-1000 prompt tokens, 16 new tokens each, 4 slots.
-   Checks 32 ``flash_attention`` launches per request (and 224
-   ``sparse_matvec`` per forward in ``sparse_cfmm``), the first two
-   prefills' logits against the CPU's plain forward of the same compiled
-   tree, and the greedy tokens against a card run with the plain
-   attention substituted, both within ``LM_LOGIT_BOUND``; reports
+   Checks 32 ``flash_attention`` launches per request and 224
+   ``cfmm_matmul`` (``int8``) or ``sparse_matvec`` (``sparse_cfmm``) per
+   forward, the first two prefills' logits against the CPU's plain
+   forward of the same compiled tree, and the greedy tokens against a
+   card run with the plain attention substituted, all within
+   ``LM_LOGIT_BOUND``; in ``int8`` also against a card run with the
+   plain (float64) int8 product substituted, whose profile it prints
+   beside the kernel run's (which must show no float64 GEMM); reports
    prefill and decode tokens/s and one profiled run's idle share;
 5. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
 
@@ -92,18 +99,21 @@ MOBILENET_V2_CONVS = 35      # stem + 16 expand + 17 project + tail
 MOBILENET_V2_DW = 17         # one depthwise 3x3 per block
 REPVGG_A0_CONVS = 22         # 1 + 2 + 4 + 14 + 1 fused 3x3 blocks
 PER_MICROBATCH = {
-    ("resnet50", "int8"): {"conv_implicit": RESNET50_CONVS},
+    ("resnet50", "int8"): {"conv_implicit": RESNET50_CONVS,
+                           "cfmm_matmul": 1},
     ("resnet50", "sparse_cfmm"): {"conv_sparse": RESNET50_CONVS,
                                   "sparse_matvec": 1},
     ("resnet50", "cfmm"): {"conv_implicit": RESNET50_CONVS,
                            "cfmm_matmul": 1},
     ("resnet50", "bitserial"): {"conv_implicit": RESNET50_CONVS},
     ("mobilenet_v2", "int8"): {"conv_implicit": MOBILENET_V2_CONVS,
-                               "conv_depthwise": MOBILENET_V2_DW},
+                               "conv_depthwise": MOBILENET_V2_DW,
+                               "cfmm_matmul": 1},
     ("mobilenet_v2", "sparse_cfmm"): {"conv_sparse": MOBILENET_V2_CONVS,
                                       "conv_depthwise": MOBILENET_V2_DW,
                                       "sparse_matvec": 1},
-    ("repvgg_a0", "int8"): {"conv_implicit": REPVGG_A0_CONVS},
+    ("repvgg_a0", "int8"): {"conv_implicit": REPVGG_A0_CONVS,
+                            "cfmm_matmul": 1},
 }
 # (model, mode, stage counts served)
 SERVED = [
@@ -117,7 +127,7 @@ SERVED = [
 ]
 # the port's kernels as torch.profiler names them
 OUR_KERNELS = ("conv_mma_kernel", "sparse_mma_kernel", "conv_dw_kernel",
-               "cfmm_matmul_kernel", "flash_kernel", "flash_mma_kernel")
+               "cfmm_mma_kernel", "flash_kernel", "flash_mma_kernel")
 
 
 class CheckFailed(AssertionError):
@@ -228,8 +238,14 @@ CONV_SHAPES = [
 DW_SHAPES = [(32, 112, 1), (96, 112, 2), (144, 56, 1), (144, 56, 2),
              (192, 28, 1), (192, 28, 2), (384, 14, 1), (576, 14, 1),
              (576, 14, 2), (960, 7, 1)]
-# the cfmm head: (M, K, N); M = 128 exercises the row tiling
-CFMM_SHAPES = [(2, 2048, 1000), (2, 1280, 1000), (128, 2048, 1000)]
+# cfmm_matmul, the product of every int8 and cfmm linear: (label, M, K,
+# N) at the CNN heads (M = 128 exercises the row tiling) and at
+# SmolLM-360M's linears in decode (4 slots) and prefill (64, 1024 tokens)
+CFMM_SHAPES = [("head", 2, 2048, 1000), ("head", 2, 1280, 1000),
+               ("head", 128, 2048, 1000), ("LM decode", 4, 960, 2560),
+               ("LM decode", 4, 2560, 960), ("LM gate/up", 64, 960, 2560),
+               ("LM q/o", 1024, 960, 960), ("LM k/v", 1024, 960, 320),
+               ("LM gate/up", 1024, 960, 2560), ("LM down", 1024, 2560, 960)]
 
 
 def conv_case(spec, dev, gen):
@@ -398,11 +414,11 @@ def check_depthwise(C, hw, stride, dev, gen):
                 ulps=ulps, y_q_mismatch=mism)
 
 
-def check_cfmm(M, K, N, dev, gen):
-    """The cfmm head GEMM against its plain version: the int32 product
-    (the served call) equal, and with a scale one f32 rounding equal.
-    The library yardstick is ``torch._int_mm``, with M zero-padded to the
-    32 rows it needs."""
+def check_cfmm(name, M, K, N, dev, gen):
+    """The int8 GEMM against its plain version: the int32 product (the
+    served call) equal, and with a scale one f32 rounding equal; prints
+    the plan (variant, tiles, splits x chunks).  The library yardstick is
+    ``torch._int_mm``, with M zero-padded to the 32 rows it needs."""
     from repro_torch.core.compiled_linear import _compile_leaf_2d, act_quant
     from repro_torch.kernels import cfmm_matmul
     leaf = _compile_leaf_2d(torch.randn((K, N), generator=gen) / K ** .5,
@@ -431,13 +447,16 @@ def check_cfmm(M, K, N, dev, gen):
     check(torch.equal(torch._int_mm(a, b)[:M], out),
           f"cfmm_matmul {label}: torch._int_mm disagrees with the kernel")
     library_ms = median_ms(lambda: torch._int_mm(a, b))
-    print(f"[kernel] cfmm_matmul    {label:16s} equal=True scaled "
-          f"{ulps} ulp kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={b_ms:.5f} ({b_by}) library_ms={fmt(library_ms)}",
-          flush=True)
-    return dict(shape=f"head {label}", ms=ms, plain_ms=plain_ms,
+    p = cfmm_matmul.plan(M, K, N)
+    print(f"[kernel] cfmm_matmul    {name} {label} equal=True scaled "
+          f"{ulps} ulp variant={p.variant} tiles={p.m_tiles}x{p.n_tiles} "
+          f"splits={p.splits}x{p.chunks_per} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"library_ms={fmt(library_ms)} kernel/library="
+          f"{ms / library_ms:.2f} kernel/bound={ms / b_ms:.1f}", flush=True)
+    return dict(shape=f"{name} {label}", ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                max_abs_err=err, ulps=ulps)
+                max_abs_err=err, ulps=ulps, plan=list(p))
 
 
 # sparse_matvec: the ResNet head, then SmolLM-360M's linears in
@@ -657,10 +676,14 @@ def check_block_sparse(label, x, w, block, dev):
                           else PEAK_F32_FLOPS)
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     shape = f"{label} M={M} K={K} N={w.shape[1]} block={bk}x{bn} {dt}"
+    bplan = block_sparse.plan(M, block, p.n_blocks_n, p.n_active, dtype)
     row = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=library_ms, max_abs_err=err,
-               n_active=p.n_active, n_blocks=int(mask.size))
+               n_active=p.n_active, n_blocks=int(mask.size), dtype=dt,
+               plan=list(bplan))
     print(f"[block_sparse] {shape} active {p.n_active}/{mask.size} "
+          f"variant={bplan.variant} tiles={bplan.m_tiles}x{bplan.n_tiles} "
+          f"splits={bplan.splits} "
           f"max|d|={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
           f"bound_ms={b_ms:.5f} ({b_by}) cublas_dense_ms={library_ms:.4f} "
           f"kernel/cublas={ms / library_ms:.2f} kernel/bound="
@@ -785,6 +808,13 @@ def block_sparse_phase(dev, gen):
           f"bf16 {float(y16[0, 0])}, f32 {float(y32[0, 0])}", flush=True)
     for path, n in paths.items():
         check(n > 0, f"{path}: the block-sparse kernel never launched")
+    for dt in ("bf16", "f32"):
+        sel = [r for r in rows if r["dtype"] == dt]
+        ms, lib = sum(r["ms"] for r in sel), sum(r["library_ms"] for r in sel)
+        print(f"[block_sparse] {dt}: {len(sel)} cases, kernel {ms:.4f} ms, "
+              f"bound {sum(r['bound_ms'] for r in sel):.5f} ms, plain "
+              f"{sum(r['plain_ms'] for r in sel):.3f} ms, cuBLAS dense "
+              f"{lib:.4f} ms: kernel/cublas={ms / lib:.2f}", flush=True)
     return rows, paths
 
 
@@ -859,7 +889,8 @@ def graph_launches(cfg, mode) -> dict:
            convs}
     if dws:
         out["conv_depthwise"] = dws
-    head = {"sparse_cfmm": "sparse_matvec", "cfmm": "cfmm_matmul"}.get(mode)
+    head = {"sparse_cfmm": "sparse_matvec", "cfmm": "cfmm_matmul",
+            "int8": "cfmm_matmul"}.get(mode)
     if head:
         out[head] = 1
     return out
@@ -1055,9 +1086,17 @@ def compare_runs(calls_a, calls_b):
     return pre, dec, n_tok, margins
 
 
+def f64_gemm(key: str) -> bool:
+    """A cuBLAS float64 matrix product's kernel, by its profiler name."""
+    k = key.lower()
+    return ("gemm" in k or "gemv" in k) and any(
+        t in k for t in ("double", "f64", "dgemm", "zgemm"))
+
+
 def profile_lm(make_engine, cfg, label):
     """One more served run under ``torch.profiler``: wall time, the card's
-    busy time (sum of device kernel times on the one stream), idle share
+    busy time (sum of device kernel times on the one stream), idle share,
+    the time of float64 GEMMs and of ``direct_copy`` (casts and copies),
     and the kernels that take most."""
     from torch.profiler import ProfilerActivity, profile
     eng = make_engine()
@@ -1085,13 +1124,20 @@ def profile_lm(make_engine, cfg, label):
           f"{100 * (1 - busy_ms / wall_ms):.1f}%; the port's kernels "
           f"{ours_ms:.2f} ms of it; device launches "
           f"{sum(e.count for e in events)}", flush=True)
+    f64_ms = sum(e.self_device_time_total for e in events
+                 if f64_gemm(e.key)) / 1e3
+    copy_ms = sum(e.self_device_time_total for e in events
+                  if "direct_copy" in e.key) / 1e3
+    print(f"[profile] {label}: float64 GEMM {f64_ms:.3f} ms, direct_copy "
+          f"{copy_ms:.3f} ms", flush=True)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
-              f"x{e.count:5d}  {e.key[:90]}", flush=True)
+              f"x{e.count:5d}  {e.key[:120]}", flush=True)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, ours_ms=ours_ms,
-                idle=1 - busy_ms / wall_ms,
-                top=[(e.key[:90], e.self_device_time_total / 1e3, e.count)
+                idle=1 - busy_ms / wall_ms, f64_gemm_ms=f64_ms,
+                direct_copy_ms=copy_ms,
+                top=[(e.key[:120], e.self_device_time_total / 1e3, e.count)
                      for e in top])
 
 
@@ -1100,8 +1146,11 @@ def serve_lm(kernels, card):
     seeded random weights initialised and compiled on the card; launch
     counts of one run; the first two prefills' logits against the CPU's
     plain forward of the same compiled tree; the greedy tokens against a
-    card run with the flash kernel's plain version substituted; prefill
-    and decode tokens/s; one profiled run."""
+    card run with the flash kernel's plain version substituted; in int8,
+    the logits and tokens against a card run with ``cfmm_matmul``'s plain
+    version (the float64 product) substituted, and that run's profile
+    beside the kernel run's; prefill and decode tokens/s; one profiled
+    run."""
     from repro_torch import nn
     from repro_torch.core.compiled_linear import _compile_leaf, ensure_compiled
     from repro_torch.kernels import flash_attention as fa
@@ -1153,8 +1202,8 @@ def serve_lm(kernels, card):
         counts = {name: kern.launches for name, kern in kernels.items()}
         n_fwd = len(rec.calls)
         want = {"flash_attention": cfg.n_layers * len(LM_PROMPTS)}
-        if mode == "sparse_cfmm":
-            want["sparse_matvec"] = cfg.n_layers * LM_LINEARS * n_fwd
+        linear = "sparse_matvec" if mode == "sparse_cfmm" else "cfmm_matmul"
+        want[linear] = cfg.n_layers * LM_LINEARS * n_fwd
         for name, got in counts.items():
             check(got == want.get(name, 0), f"{label}: {got} {name} "
                   f"launches in {n_fwd} forwards, want {want.get(name, 0)}")
@@ -1248,6 +1297,12 @@ def serve_lm(kernels, card):
               "no compared step parted")
 
         prof = profile_lm(make, cfg, label)
+        plain_product = None
+        if mode == "int8":
+            check(prof is None or prof["f64_gemm_ms"] == 0.0,
+                  f"{label}: the profile still shows a float64 GEMM")
+            plain_product = compare_plain_product(make, cfg, label, rec,
+                                                  reqs)
         results[label] = dict(
             counts=counts, forwards=n_fwd, wall_s=wall,
             prefill_tok_s=pre_tok / pre_s, prefill_ms=pre_s * 1e3,
@@ -1257,8 +1312,40 @@ def serve_lm(kernels, card):
                                  tokens_equal=same, prefill_max_dlogit=pre_d,
                                  decode_max_dlogit=dec_d, logit_std=std,
                                  margins=margins),
-            profile=prof)
+            profile=prof, plain_product=plain_product)
     return results
+
+
+def compare_plain_product(make, cfg, label, rec, reqs):
+    """The int8 run again with ``cfmm_matmul``'s plain version (the
+    float64 product and its casts) substituted: the int32 sums are the
+    same, so the logits and tokens should be; and its profile, the path
+    as it ran before the kernel took it."""
+    from repro_torch.kernels import cfmm_matmul, ops
+    orig = ops._cfmm_kernel
+    ops._cfmm_kernel = cfmm_matmul.cfmm_matmul_plain
+    try:
+        cfmm_matmul.KERNEL.launches = 0
+        plain_eng = make()
+        with LMRecorder(plain_eng) as rec_plain:
+            plain_reqs = plain_eng.run(lm_requests(cfg))
+        prof = profile_lm(make, cfg, f"{label} with the plain int8 product")
+    finally:
+        ops._cfmm_kernel = orig
+    check(cfmm_matmul.KERNEL.launches == 0, f"{label}: the substituted run "
+          "launched the cfmm kernel")
+    pre_d, dec_d, n_tok, margins = compare_runs(rec_plain.calls, rec.calls)
+    streams_equal = all(r.tokens_out == pr.tokens_out
+                        for r, pr in zip(reqs, plain_reqs))
+    worst = max(pre_d + [dec_d])
+    print(f"[lm] {label}: vs the plain int8 product on the card: "
+          f"streams_equal={streams_equal}; max|dlogit| prefill "
+          f"{max(pre_d):.4g}, decode {dec_d:.4g} over {n_tok} tokens",
+          flush=True)
+    check(worst <= LM_LOGIT_BOUND, f"{label}: kernel run off the "
+          f"plain-product run by {worst:.4g}")
+    return dict(streams_equal=streams_equal, prefill_max_dlogit=max(pre_d),
+                decode_max_dlogit=dec_d, profile=prof)
 
 
 def main() -> int:

@@ -139,9 +139,12 @@ def apply_linear(w: dict, x: torch.Tensor,
     ``per_row=True`` quantizes each flattened input row under its own
     INT8 domain — the compiled ResNet head uses it so a request's logits
     never depend on which rows share its microbatch.  Every mode's int32
-    product is exact: the sparse and cfmm kernels sum in int32, and the
-    plain int8 and bit-serial products sum in float64 (kernels/ref.py),
-    on the CPU and on the card alike.
+    product is exact: on the card the ``int8`` and ``cfmm`` products run
+    the ``cfmm_matmul`` kernel (one int8 x int8 -> int32 GEMM on the same
+    INT7 codes, stored under ``values`` and ``codes``) and ``sparse_cfmm``
+    the sparse kernel, all summing in int32; the plain versions on the
+    CPU, and the bit-serial product everywhere, sum in float64
+    (kernels/ref.py).
     """
     assert "geom" not in w, "compiled conv leaf: use apply_conv"
     lead = tuple(x.shape[:-1])
@@ -153,7 +156,7 @@ def apply_linear(w: dict, x: torch.Tensor,
     elif "codes" in w:                             # cfmm
         acc = ops.cfmm_matmul(x_q, w["codes"])
     else:                                          # int8
-        acc = kref.int8_matmul_ref(x_q, w["values"])
+        acc = ops.cfmm_matmul(x_q, w["values"])
     s_row = s_x.reshape(-1, 1) if per_row else s_x
     y = acc.float() * (s_row * w["scale"].reshape(1, -1))
     return y.reshape(lead + (y.shape[-1],)).to(x.dtype)

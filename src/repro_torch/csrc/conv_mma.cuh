@@ -64,6 +64,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cluster_launch.cuh"
 #include "conv_common.cuh"
 
 namespace repro {
@@ -748,40 +749,13 @@ conv_mma_kernel(ConvArgs a, Plan p) {
 template <bool SPARSE, int VEC>
 int launch_vec(const ConvArgs& a, const Plan& p, dim3 grid,
                cudaStream_t stream) {
-  const auto kernel = conv_mma_kernel<SPARSE, VEC>;
   constexpr int STAGE = A_BYTES + (SPARSE ? BMP_BYTES : BD_BYTES);
   constexpr int SMEM = STAGES * STAGE + (SPARSE ? 2 * BS_WORDS * 4 : 0);
   static_assert(SMEM + 2048 <= 48 * 1024, "dynamic + static shared memory "
                 "under 48 KB: no opt-in attribute");
   static_assert(PART_BYTES <= SMEM, "split K: the partials reuse the ring");
-  // clusters of up to 16 blocks are non-portable: allowed once per device
-  // (the attribute is the device's), at its first launch, before any
-  // CUDA-graph capture
-  constexpr int MAX_DEVICES = 64;
-  static bool configured[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= MAX_DEVICES || !configured[dev]) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < MAX_DEVICES) configured[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = p.splits;   // a tile's splits
-  cfg.attrs = &cluster;
-  cfg.numAttrs = p.splits > 1;           // unsplit: a plain launch
-  e = cudaLaunchKernelEx(&cfg, kernel, a, p);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return launch_split_z<conv_mma_kernel<SPARSE, VEC>>(
+      grid, THREADS, SMEM, stream, p.splits, a, p);
 }
 
 // Check the plan against the shape and launch; cudaErrorInvalidValue (1)

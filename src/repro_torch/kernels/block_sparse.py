@@ -16,21 +16,25 @@ output block column nb adjacent, ascending k), the plan, and per-column
 offsets into it (a CSC of blocks).  The TPU kernel's first/last flags
 become those offsets' bounds.  The kernel (``csrc/block_sparse.cu``)
 gives each thread block a 64 x 64 output tile of one block column; it
-walks only that column's active k-blocks, stages each through shared
-memory 16 k-rows at a time, sums each block's product in f32 registers
-(4 x 4 per thread, bf16 widened on load) and adds it to the column's
-sum, as the TPU kernel does.  Ragged M and blocks that are no multiple of the
-tile are masked, never padded; the output is written once, in ``x``'s
-type, and block columns with no active block get zeros.
+walks only that column's active k-blocks, 32 k-rows a step, through a
+``cp.async`` ring of shared-memory stages, sums each block's product in
+a fresh f32 accumulator and adds it to the column's sum, as the TPU
+kernel does.  bf16 runs on the tensor cores (``mma.sync.m16n8k16``,
+``ldmatrix`` for x, ``ldmatrix.trans`` for the row-major blocks); f32
+stays on FMAs, since TF32 would change the function.  ``plan`` splits a
+column's active blocks over a thread-block cluster where the tiles alone
+do not fill the card (small M); the splits' f32 partials are added in
+ascending order in distributed shared memory, so every call gives the
+same bits.  Ragged M and blocks that are no multiple of the tile are
+zero-filled in shared memory, never padded in memory; the output is
+written once, in ``x``'s type, and block columns with no active block
+get zeros.
 
 What bounds it on an H100: in f32, operations (2 M bk bn flops per
-active block at 67 TFLOP/s on the CUDA cores; TF32 would change the
-function); in bf16, with the tensor cores' 989 TFLOP/s, bytes (x, the
-active blocks and the output once each, at 3.35 TB/s) at ResNet50's 1x1
-shapes and operations at SmolLM-360M's 1024-token gate/up.  This first kernel does
-f32 FMAs on the CUDA cores, one 16-byte shared-memory load per 8 FMAs,
-so it sits above the f32 bound and far above the bf16 one (PERF.md);
-tensor-core tiles are the next step.
+active block at 67 TFLOP/s on the CUDA cores); in bf16, with the tensor
+cores' 989 TFLOP/s, bytes (x, the active blocks and the output once
+each, at 3.35 TB/s) at ResNet50's 1x1 shapes and operations at
+SmolLM-360M's 1024-token gate/up.
 
 For a CPU tensor the wrapper runs the plain version
 (``ref.block_sparse_matmul_plain``); for a CUDA tensor it launches the
@@ -39,6 +43,7 @@ kernel or raises.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,8 +53,52 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel("block_sparse", "block_sparse_launch",
-                    (P,) * 5 + (I,) * 6 + (P,))
+                    (P,) * 5 + (I,) * 8 + (P,))
 DTYPES = (torch.float32, torch.bfloat16)
+SMS = 132            # streaming multiprocessors of an H100 SXM
+TILE_M = 64          # output rows per tile
+TILE_N = 64          # output columns per tile (within one block column)
+MAX_SPLITS = 16      # a tile's splits form one thread-block cluster
+
+
+class BlockSparsePlan(NamedTuple):
+    """How one call launches: ``variant`` "mma" (bf16, tensor cores) or
+    "fma" (f32, CUDA cores); the grid is ``n_tiles`` (64 columns of one
+    block column each) x ``m_tiles`` x ``splits``, split ``z`` of a
+    column with c active blocks taking blocks ``[c z / splits, c (z + 1)
+    / splits)`` of it."""
+    variant: str
+    m_tiles: int
+    n_tiles: int
+    splits: int
+
+
+def plan(M: int, block_kn, n_blocks_n: int, n_active: int,
+         dtype) -> BlockSparsePlan:
+    """The launch of one call: 64 x 64 tiles; where they fill at most
+    half of the 132 SMs, each column's active blocks split over as many
+    splits as one block per SM needs, at most ``MAX_SPLITS`` and at most
+    the mean active blocks per column (so that most splits get one)."""
+    _, bn = block_kn
+    m_tiles = -(-M // TILE_M)
+    n_tiles = n_blocks_n * -(-bn // TILE_N)
+    tiles = m_tiles * n_tiles
+    splits = 1
+    if 2 * tiles <= SMS:
+        splits = max(1, min(MAX_SPLITS, n_active // n_blocks_n,
+                            -(-SMS // tiles)))
+    return BlockSparsePlan("mma" if dtype == torch.bfloat16 else "fma",
+                           m_tiles, n_tiles, splits)
+
+
+def copy_width(elt: int, lengths, addresses) -> int:
+    """Bytes per copy of x and weight rows: 16 or 4 where every row length
+    (in elements) and every address allow it, else the element size."""
+    for v in (16, 4):
+        if all(n * elt % v == 0 for n in lengths) \
+                and all(a % v == 0 for a in addresses):
+            return v
+    return elt
 
 
 def plan_blocks(mask: np.ndarray) -> np.ndarray:
@@ -137,9 +186,23 @@ def block_sparse_matmul(x: torch.Tensor, w_blocks: torch.Tensor,
     check_cuda("w_blocks", w_blocks, x.dtype, (n_active, bk, bn))
     check_cuda("meta", meta, torch.int32, (4, n_active))
     check_cuda("offsets", offsets, torch.int32, (n_blocks_n + 1,))
+    p = plan(M, block_kn, n_blocks_n, n_active, x.dtype)
+    return block_sparse_launch(x, w_blocks, meta, offsets, block_kn,
+                               n_blocks_n, p.splits)
+
+
+def block_sparse_launch(x, w_blocks, meta, offsets, block_kn,
+                        n_blocks_n: int, splits: int) -> torch.Tensor:
+    """Launch the kernel with ``splits`` on checked operands; the tests
+    give splits other than ``plan``'s here."""
+    M, K = x.shape
+    bk, bn = block_kn
     out = torch.empty((M, n_blocks_n * bn), dtype=x.dtype, device=x.device)
     if M == 0 or out.numel() == 0:
         return out
+    vec = copy_width(x.element_size(), (K, bk, bn),
+                     (x.data_ptr(), w_blocks.data_ptr()))
     KERNEL.launch(ptr(x), ptr(w_blocks), ptr(meta), ptr(offsets), ptr(out),
-                  M, K, bk, bn, n_blocks_n, int(x.dtype == torch.bfloat16))
+                  M, K, bk, bn, n_blocks_n, int(x.dtype == torch.bfloat16),
+                  splits, vec)
     return out

@@ -1,24 +1,37 @@
 """The rules by which the port's CUDA wrappers pick a kernel variant and
 its grid, on the CPU: ``flash_attention.variant`` (tensor-core ``mma``
 or CUDA-core ``fma``), ``sparse_matvec.plan`` (``rows`` or ``split``
-and the split of K over the grid) and ``conv_implicit.plan`` (the copy
-widths, tiles and split of K of both conv kernels).  The kernels
-themselves run only on the card (tests/test_torch_kernels_cuda.py);
-here the split-K decompositions the kernels use — each split's start in
-the packed values found by a popcount of the bitmap bytes before it,
-chunks expanded with the running nonzero count, partial products
-added — are replayed with the plain expansion and held to
-``ref.sparse_matvec_ref``, ``ref.conv2d_int8_ref`` and
-``ref.conv2d_sparse_int8_ref`` bit for bit; so is the conv epilogue's
-per-image ``amax`` over output tiles that cross images.
+and the split of K over the grid), ``conv_implicit.plan`` (the copy
+widths, tiles and split of K of both conv kernels), ``cfmm_matmul.plan``
+(``rows`` or ``split`` and the split of K over a cluster) and
+``block_sparse.plan`` (``mma`` or ``fma`` and the split of a column's
+active blocks).  The kernels themselves run only on the card
+(tests/test_torch_kernels_cuda.py); here the split-K decompositions the
+kernels use — each split's start in the packed values found by a
+popcount of the bitmap bytes before it, chunks expanded with the running
+nonzero count, partial products added — are replayed with the plain
+expansion and held to ``ref.sparse_matvec_ref``, ``ref.conv2d_int8_ref``
+and ``ref.conv2d_sparse_int8_ref`` bit for bit; so are the cfmm splits'
+int32 partials (to ``ref.int8_matmul_ref``, the scale applied once to
+the sum), the conv epilogue's per-image ``amax`` over output tiles that
+cross images, and the block-sparse splits' f32 partials added in their
+fixed order (to ``ref.block_sparse_matmul_plain`` within the kernel
+tests' tolerance, the same bits on every replay).  Last, the ``int8``
+mode's linear goes through ``ops.cfmm_matmul`` and still equals the JAX
+package's ``apply_linear``.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import compiled_linear as jcl
+from repro_torch import nn
+from repro_torch.core import compiled_linear as tcl
 from repro_torch.core.compiled_linear import _compile_leaf_2d, bitmap_pack
-from repro_torch.kernels import (conv_implicit, flash_attention, ref,
-                                 sparse_matvec)
+from repro_torch.kernels import (block_sparse, cfmm_matmul, conv_implicit,
+                                 flash_attention, ops, ref, sparse_matvec)
 from repro_torch.kernels.bitmap import expand_bitmap_tile
 
 
@@ -424,3 +437,279 @@ def test_conv_tiles_across_images_keep_per_image_amax(N, hw, sc_kind, relu):
                               conv_implicit.BLOCK_M)
     assert torch.equal(y, y_p)
     assert torch.equal(amax, amax_p)
+
+
+# ---------------------------------------------------------------------------
+# cfmm_matmul.plan: the int8 GEMM of the int8 and cfmm modes
+# ---------------------------------------------------------------------------
+
+# (M, K, N) -> (variant, m_tiles, n_tiles, splits, chunks_per) at
+# chip_smoke.py's shapes (the CNN heads; SmolLM-360M's linears at 4
+# decode slots and 64- and 1024-token prefills) and the cuda tests'
+# ragged ones
+CFMM_PLANS = [
+    ((2, 2048, 1000), ("split", 1, 16, 16, 1)),
+    ((2, 1280, 1000), ("split", 1, 16, 10, 1)),
+    ((128, 2048, 1000), ("rows", 2, 16, 6, 6)),
+    ((4, 960, 2560), ("split", 1, 40, 8, 1)),
+    ((4, 2560, 960), ("split", 1, 15, 10, 2)),
+    ((4, 960, 960), ("split", 1, 15, 8, 1)),
+    ((4, 960, 320), ("split", 1, 5, 8, 1)),
+    ((64, 960, 2560), ("rows", 1, 40, 5, 3)),
+    ((1024, 960, 960), ("rows", 16, 15, 1, 15)),
+    ((1024, 960, 320), ("rows", 16, 5, 3, 5)),
+    ((1024, 960, 2560), ("rows", 16, 40, 1, 15)),
+    ((1024, 2560, 960), ("rows", 16, 15, 1, 40)),
+    ((3, 7, 5), ("split", 1, 1, 1, 1)),
+    ((9, 130, 33), ("split", 1, 1, 2, 1)),
+    ((1, 64, 10), ("split", 1, 1, 1, 1)),
+    ((17, 512, 256), ("rows", 1, 4, 8, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,want", CFMM_PLANS)
+def test_cfmm_plan_at_chip_smoke_shapes(shape, want):
+    assert tuple(cfmm_matmul.plan(*shape)) == want
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 16, 17, 64, 128, 1000, 1024])
+@pytest.mark.parametrize("K,N", [(960, 2560), (2560, 960), (960, 320),
+                                 (2048, 1000), (7, 5), (130, 33)])
+def test_cfmm_plan_covers_k_and_fills_the_card(M, K, N):
+    """Every chunk belongs to exactly one split, spread evenly; no split
+    is empty; the variant follows M; the tiles cover M and N; a split
+    happens only where the tiles fill less than the variant's waves, and
+    then fills them unless each split is down to one chunk or the
+    cluster is full."""
+    p = cfmm_matmul.plan(M, K, N)
+    tm, bk = cfmm_matmul.TILE[p.variant]
+    n_chunks = -(-K // bk)
+    assert p.variant == ("split" if M <= 16 else "rows")
+    assert 1 <= p.splits <= cfmm_matmul.MAX_SPLITS and p.chunks_per >= 1
+    assert (p.splits - 1) * p.chunks_per < n_chunks <= p.splits * p.chunks_per
+    assert p.chunks_per == -(-n_chunks // p.splits)
+    assert (p.m_tiles - 1) * tm < M <= p.m_tiles * tm
+    assert (p.n_tiles - 1) * 64 < N <= p.n_tiles * 64
+    tiles = p.m_tiles * p.n_tiles
+    target = cfmm_matmul.WAVES[p.variant] * cfmm_matmul.SMS
+    if tiles >= target:
+        assert p.splits == 1
+    else:
+        assert (tiles * p.splits >= target or p.chunks_per == 1
+                or n_chunks > cfmm_matmul.MAX_SPLITS)
+
+
+def _cfmm_split_replay(x, codes, p, order):
+    """The kernel's decomposition of K: split s walks chunks [s *
+    chunks_per, (s + 1) * chunks_per); in the split variant warp w takes
+    the k32 step w of every chunk.  Each part's int32 product, summed in
+    ``order``."""
+    tm, bk = cfmm_matmul.TILE[p.variant]
+    K = x.shape[1]
+    n_chunks = -(-K // bk)
+    parts = []
+    for s in range(p.splits):
+        chunks = range(s * p.chunks_per, min((s + 1) * p.chunks_per,
+                                             n_chunks))
+        steps = range(4) if p.variant == "split" else [None]
+        for w in steps:
+            rows = [k for c in chunks for k in range(c * bk, min((c + 1) * bk, K))
+                    if w is None or (k - c * bk) // 32 == w]
+            idx = torch.tensor(rows, dtype=torch.long)
+            parts.append(ref.int8_matmul_ref(x[:, idx], codes[idx]))
+    acc = torch.zeros_like(parts[0])
+    for i in order(len(parts)):
+        acc += parts[i]
+    return acc
+
+
+@pytest.mark.parametrize("M,K,N,N_run", [
+    (4, 960, 2560, 24), (4, 2560, 960, 24), (2, 2048, 1000, 40),
+    (64, 960, 2560, 24), (1024, 960, 320, 8), (9, 130, 33, 33),
+    (3, 7, 5, 5)])
+def test_cfmm_split_k_replay_matches_plain(M, K, N, N_run):
+    """Each split's int32 partials (and each warp's in the split variant),
+    added in any order, equal the plain product; the scale, applied once
+    to that sum, gives ``cfmm_matmul_plain``'s scaled output.  The plan
+    is the served shape's; the product runs at N_run columns."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    codes = torch.randint(-63, 64, (K, N_run), generator=g, dtype=torch.int8)
+    scale = 0.01 + torch.rand((N_run,), generator=g)
+    p = cfmm_matmul.plan(M, K, N)
+    want = ref.int8_matmul_ref(x, codes)
+    for order in (lambda n: range(n), lambda n: reversed(range(n)),
+                  lambda n: torch.randperm(n, generator=g).tolist()):
+        acc = _cfmm_split_replay(x, codes, p, order)
+        assert torch.equal(acc, want)
+        assert torch.equal(acc.float() * scale,
+                           cfmm_matmul.cfmm_matmul_plain(x, codes, scale))
+
+
+# ---------------------------------------------------------------------------
+# block_sparse.plan: the block-sparse matmul
+# ---------------------------------------------------------------------------
+
+# (M, K, N, block, kept blocks) -> (variant, m_tiles, n_tiles, splits) in
+# bf16, at the cuda tests' and chip_smoke.py's shapes (ResNet50 1x1
+# convs at microbatch 2, SmolLM-360M gate/up at 1024 tokens)
+BS_PLANS = [
+    ((64, 512, 256, (128, 128), 8), ("mma", 1, 4, 4)),
+    ((8, 256, 128, (128, 128), 2), ("mma", 1, 2, 2)),
+    ((98, 2048, 512, (64, 64), 256), ("mma", 2, 8, 9)),
+    ((98, 2048, 512, (64, 64), 51), ("mma", 2, 8, 6)),
+    ((1024, 960, 2560, (64, 64), 600), ("mma", 16, 40, 1)),
+    ((37, 480, 400, (48, 80), 50), ("mma", 1, 10, 10)),
+    ((130, 96, 72, (32, 24), 9), ("mma", 3, 3, 3)),
+    ((1, 64, 64, (64, 64), 1), ("mma", 1, 1, 1)),
+    ((392, 1024, 256, (64, 64), 64), ("mma", 7, 4, 5)),
+    ((6272, 64, 256, (64, 64), 4), ("mma", 98, 4, 1)),
+    ((1568, 128, 512, (64, 64), 16), ("mma", 25, 8, 1)),
+    ((98, 256, 128, (64, 64), 7), ("mma", 2, 2, 3)),
+]
+
+
+@pytest.mark.parametrize("case,want", BS_PLANS)
+def test_block_sparse_plan_at_test_and_chip_smoke_shapes(case, want):
+    M, K, N, block, n_active = case
+    p = block_sparse.plan(M, block, N // block[1], n_active, torch.bfloat16)
+    assert tuple(p) == want
+    assert block_sparse.plan(M, block, N // block[1], n_active,
+                             torch.float32) == p._replace(variant="fma")
+
+
+@pytest.mark.parametrize("M", [1, 37, 98, 130, 392, 1024, 6272])
+@pytest.mark.parametrize("block,n_blocks_n,n_active", [
+    ((64, 64), 8, 256), ((64, 64), 8, 3), ((64, 64), 4, 0),
+    ((48, 80), 5, 50), ((128, 128), 2, 4), ((32, 24), 3, 9)])
+def test_block_sparse_plan_fills_the_card(M, block, n_blocks_n, n_active):
+    """Tiles cover M and every block column; a split only where the tiles
+    fill at most half of the SMs, never more splits than the mean active
+    blocks per column or the cluster allows, and then enough for a wave
+    unless one of those caps it."""
+    p = block_sparse.plan(M, block, n_blocks_n, n_active, torch.bfloat16)
+    bn = block[1]
+    assert (p.m_tiles - 1) * 64 < M <= p.m_tiles * 64
+    assert p.n_tiles == n_blocks_n * -(-bn // 64)
+    tiles = p.m_tiles * p.n_tiles
+    assert 1 <= p.splits <= max(1, min(block_sparse.MAX_SPLITS,
+                                       n_active // n_blocks_n))
+    if 2 * tiles > block_sparse.SMS:
+        assert p.splits == 1
+    elif p.splits < min(block_sparse.MAX_SPLITS, n_active // n_blocks_n):
+        assert tiles * p.splits >= block_sparse.SMS
+
+
+@pytest.mark.parametrize("elt,lengths,want", [
+    (2, (480, 48, 80), 16), (2, (96, 32, 24), 16), (2, (24, 12, 20), 4),
+    (2, (28, 7, 5), 2), (4, (24, 12, 20), 16), (4, (28, 7, 5), 4)])
+def test_block_sparse_copy_width(elt, lengths, want):
+    """16-byte copies where K, bk and bn allow them (bf16: multiples of
+    8), else 4-byte, else one element; an address off a 16-byte boundary
+    takes at most 4 bytes."""
+    assert block_sparse.copy_width(elt, lengths, (0, 256)) == want
+    assert block_sparse.copy_width(elt, lengths, (0, 2 * elt)) == min(want, 4)
+
+
+BS_RTOL, BS_ATOL = 1e-5, 1e-4        # as tests/test_torch_kernels_cuda.py
+
+
+def _bs_split_replay(x, p, splits):
+    """The kernel's decomposition: split z of a column with c active
+    blocks takes blocks [c z / S, c (z + 1) / S); each block's f32
+    product is added to the split's sum in ascending k, and the splits'
+    sums are added in ascending z; rounded once to x's type."""
+    M, _ = x.shape
+    bk, bn = p.block_kn
+    offs = p.offsets.tolist()
+    kblock = p.meta[0].tolist()
+    out = torch.zeros((M, p.n_blocks_n * bn))
+    for nb in range(p.n_blocks_n):
+        lo, cnt = offs[nb], offs[nb + 1] - offs[nb]
+        col = None
+        for z in range(splits):
+            part = torch.zeros((M, bn))
+            for b in range(lo + cnt * z // splits, lo + cnt * (z + 1) // splits):
+                kb = kblock[b]
+                part = part + x[:, kb * bk:(kb + 1) * bk].float() \
+                    @ p.w_blocks[b].float()
+            col = part if col is None else col + part
+        out[:, nb * bn:(nb + 1) * bn] = col
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("keep", [1.0, 0.5, 0.2])
+@pytest.mark.parametrize("M,K,N,block", [
+    (98, 2048, 512, (64, 64)), (8, 256, 128, (128, 128)),
+    (37, 480, 400, (48, 80)), (130, 96, 72, (32, 24))])
+def test_block_sparse_split_replay_matches_plain(M, K, N, block, keep, dtype):
+    """At the plan's split and at 1, 2 and 16 splits: within the kernel
+    tests' tolerance of the plain version, and the same bits on a second
+    replay."""
+    bk, bn = block
+    g = torch.Generator().manual_seed(M + K + N)
+    w = torch.randn((K, N), generator=g)
+    mask = torch.rand((K // bk, N // bn), generator=g) < keep
+    if keep < 1.0:
+        mask[:, 0] = False                   # an empty block column
+    w *= mask.repeat_interleave(bk, 0).repeat_interleave(bn, 1)
+    x = torch.randn((M, K), generator=g).to(dtype)
+    p = block_sparse.pack_blocks(w, block, dtype, "cpu")
+    want = ref.block_sparse_matmul_plain(x, p.w_blocks, p.meta, p.offsets,
+                                         block, p.n_blocks_n)
+    planned = block_sparse.plan(M, block, p.n_blocks_n, p.n_active, dtype)
+    for splits in {planned.splits, 1, 2, 16}:
+        got = _bs_split_replay(x, p, splits)
+        assert torch.equal(got, _bs_split_replay(x, p, splits))
+        err = (got.float() - want.float()).abs()
+        tol = BS_ATOL + BS_RTOL * want.float().abs()
+        if dtype == torch.bfloat16:
+            tol = tol + want.float().abs() * 2.0 ** -7
+        assert bool((err <= tol).all()), float(err.max())
+        if keep < 1.0:
+            assert bool((got[:, :bn] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# The int8 serve mode's linear runs the cfmm_matmul wrapper
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("lead", [(5,), (2, 3)])
+def test_int8_apply_linear_runs_cfmm_matmul(monkeypatch, lead, per_row,
+                                            stacked):
+    """``apply_linear`` on an ``int8`` leaf calls ``ops.cfmm_matmul`` once,
+    on the flattened rows and the leaf's ``values`` — for a stacked
+    (layers, K, N) leaf, the layer's slice as it is, no copy — and its
+    output equals the JAX package's jitted ``apply_linear`` (whose
+    activation scale is ``amax * f32(1/127)``, as the port's) on the same
+    leaf and inputs."""
+    calls = []
+    real = ops.cfmm_matmul
+
+    def spy(x_q, codes, scale=None):
+        calls.append((tuple(x_q.shape), codes.data_ptr(), scale))
+        return real(x_q, codes, scale)
+
+    monkeypatch.setattr(ops, "cfmm_matmul", spy)
+    rng = np.random.RandomState(len(lead) + 2 * per_row + 4 * stacked)
+    K, N = 40, 24
+    w = torch.from_numpy(rng.randn(3, K, N).astype(np.float32) / 6)
+    if stacked:                       # layer 1 of a compiled stacked leaf,
+        leaf = tcl._compile_leaf(     # sliced as models/lm.py slices it
+            nn.Param(w, ("layers", "embed", "mlp"), "linear"), "int8", 0.8)
+        leaf = {k: p.value[1] for k, p in leaf.items()}
+    else:
+        leaf = _compile_leaf_2d(w[1], "int8", 0.8)
+    x = rng.randn(*lead, K).astype(np.float32)
+    y = tcl.apply_linear(leaf, torch.from_numpy(x), per_row=per_row)
+    assert calls == [((int(np.prod(lead)), K), leaf["values"].data_ptr(),
+                      None)]
+    y_jax = jax.jit(jcl.apply_linear, static_argnames="per_row")(
+        {k: jnp.asarray(v.numpy()) for k, v in leaf.items()},
+        jnp.asarray(x), per_row=per_row)
+    assert y.shape == lead + (N,)
+    np.testing.assert_array_equal(y.numpy(), np.asarray(y_jax))

@@ -18,7 +18,10 @@ over the grid at full-width ResNet50 7x7 and 14x14 shapes, the sparse
 split's popcount start past 8192 bitmap rows), and a split launch's
 CUDA-graph replay equal to the eager call; the depthwise kernel at
 MobileNetV2's channel counts and ragged ones; the cfmm matmul at the
-heads' shapes and ragged ones.  Asserted: int32 accumulators equal,
+heads' shapes, SmolLM-360M's linear shapes and ragged ones, under every
+variant and split of its plan (``cfmm_matmul.plan``: ``rows`` or
+``split``, K split over a cluster) and every copy width, with and
+without a scale, and a split launch's CUDA-graph replay.  Asserted: int32 accumulators equal,
 ``y`` and the per-image amax equal (both sides round the Collector once,
 ``fmaf`` against ``ref.fma_f32``).  The flash-attention kernel against
 its plain version in f32 and bf16 over the JAX kernel test's sweep, the
@@ -27,7 +30,9 @@ both kernels (the tensor-core ``mma`` and the CUDA-core ``fma``), within
 the tolerances of ``FLASH_TOL``; the sparse matmul at the LM's linear
 shapes, in both variants, with and without a split over K; the block-sparse matmul in f32 and bf16 with 100, 50, 20
 and 0 % of its blocks kept, ragged M and blocks that are no multiple of
-its tile, within ``BS_RTOL``/``BS_ATOL``.
+its tile, within ``BS_RTOL``/``BS_ATOL``; also at every split of a
+column's active blocks (``block_sparse.plan``) and every copy width,
+two calls and a CUDA-graph replay giving the same bits.
 """
 import pytest
 import torch
@@ -366,6 +371,124 @@ def test_cfmm_matmul_matches_plain(dev, M, K, N, with_scale):
     assert torch.equal(out, out_p)
 
 
+@pytest.mark.parametrize("M,K,N", [(4, 960, 2560), (4, 2560, 960),
+                                   (64, 960, 2560), (1024, 960, 960),
+                                   (1024, 960, 320), (1024, 960, 2560),
+                                   (1024, 2560, 960)])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_cfmm_matmul_matches_plain_at_lm_shapes(dev, M, K, N, with_scale):
+    """SmolLM-360M's linears in int8: decode slots (M = 4) and prefill
+    buckets; the int32 product equal, the scaled output one rounding."""
+    g = torch.Generator().manual_seed(M + K + N)
+    leaf = _compile_leaf_2d(torch.randn((K, N), generator=g), "int8", 0.8)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    x, codes, scale = (t.to(dev).contiguous()
+                       for t in (x, leaf["values"], leaf["scale"]))
+    scale = scale if with_scale else None
+    before = cfmm_matmul.KERNEL.launches
+    out = cfmm_matmul.cfmm_matmul(x, codes, scale)
+    torch.cuda.synchronize()
+    assert cfmm_matmul.KERNEL.launches == before + 1
+    assert torch.equal(out, cfmm_matmul.cfmm_matmul_plain(x, codes, scale))
+
+
+def _cfmm_plans(M, K, N):
+    """The plan's own launch and every other split of K the kernel takes
+    for this variant: 1, 2, 3 and 16 splits (as far as K has chunks)."""
+    p = cfmm_matmul.plan(M, K, N)
+    bk = cfmm_matmul.TILE[p.variant][1]
+    n_chunks = -(-K // bk)
+    plans = {p}
+    for want in (1, 2, 3, 16):
+        per = -(-n_chunks // min(want, n_chunks))
+        plans.add(p._replace(splits=-(-n_chunks // per), chunks_per=per))
+    return sorted(plans)
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (1, 960, 2560), (4, 2560, 960), (16, 1288, 1000), (2, 2050, 33),
+    (17, 960, 320), (130, 1288, 1000), (1000, 2560, 33), (64, 130, 2560)])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_cfmm_matmul_every_split(dev, M, K, N, with_scale):
+    """Both variants (split at M <= 16, rows above, ragged row tiles at
+    17, 130, 1000), every split of K from 1 to 16 (a ragged last chunk at
+    K = 1288, 2050, 130), and every copy width (K, N multiples of 16, 8,
+    or neither: 2050 and 33 take byte loads)."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    codes = torch.randint(-63, 64, (K, N), generator=g, dtype=torch.int8)
+    scale = (0.01 + torch.rand((N,), generator=g)) if with_scale else None
+    x, codes = x.to(dev), codes.to(dev)
+    scale = None if scale is None else scale.to(dev)
+    want = cfmm_matmul.cfmm_matmul_plain(x, codes, scale)
+    for p in _cfmm_plans(M, K, N):
+        got = cfmm_matmul.cfmm_launch(x, codes, scale, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), p
+
+
+def test_cfmm_matmul_takes_unaligned_operands(dev):
+    """x and codes that start off a 16-, 8- or 4-byte boundary take
+    narrower copies (down to byte loads), as do stacked-leaf slices."""
+    g = torch.Generator().manual_seed(5)
+    M, K, N = 4, 960, 320
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    codes = torch.randint(-63, 64, (K, N), generator=g, dtype=torch.int8)
+    want = cfmm_matmul.cfmm_matmul_plain(x, codes)
+    for off in (1, 4, 8):
+        xb = torch.empty(x.numel() + off, dtype=torch.int8, device=dev)
+        wb = torch.empty(codes.numel() + off, dtype=torch.int8, device=dev)
+        xo, wo = xb[off:].view(M, K), wb[off:].view(K, N)
+        xo.copy_(x.to(dev))
+        wo.copy_(codes.to(dev))
+        got = cfmm_matmul.cfmm_matmul(xo, wo)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), off
+    stacked = torch.stack([codes, codes.flip(0)]).to(dev)
+    got = cfmm_matmul.cfmm_matmul(x.to(dev), stacked[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cfmm_matmul.cfmm_matmul_plain(
+        x, codes.flip(0)))
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 960, 2560), (64, 960, 2560)])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_cfmm_matmul_graph_replay_equals_eager(dev, M, K, N, with_scale):
+    """A split launch (a cluster per tile) captured in a CUDA graph and
+    replayed on new inputs equals the eager call on them."""
+    g = torch.Generator().manual_seed(M)
+    mk = lambda: torch.randint(-127, 128, (M, K), generator=g,
+                               dtype=torch.int8).to(dev)
+    codes = torch.randint(-63, 64, (K, N), generator=g,
+                          dtype=torch.int8).to(dev)
+    scale = (0.01 + torch.rand((N,), generator=g)).to(dev) \
+        if with_scale else None
+    assert cfmm_matmul.plan(M, K, N).splits > 1
+    x = mk()
+    cfmm_matmul.cfmm_matmul(x, codes, scale)          # first launch: eager
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cfmm_matmul.cfmm_matmul(x, codes, scale)
+    for _ in range(2):
+        x.copy_(mk())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, cfmm_matmul.cfmm_matmul(x, codes, scale))
+
+
+def test_cfmm_matmul_refuses_a_plan_it_does_not_take(dev):
+    x = torch.zeros((20, 960), dtype=torch.int8, device=dev)
+    codes = torch.zeros((960, 64), dtype=torch.int8, device=dev)
+    p = cfmm_matmul.plan(20, 960, 64)
+    for bad in (p._replace(variant="split"),       # M > 16
+                p._replace(splits=17, chunks_per=1),
+                p._replace(splits=1, chunks_per=1),  # chunks left out
+                p._replace(splits=15, chunks_per=2)):  # an empty split
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            cfmm_matmul.cfmm_launch(x, codes, None, bad)
+
+
 # flash attention, kernel against plain version: the two sum the scores
 # and p.v in other orders, and the kernel's p is relative to a running
 # max, so it rounds to bf16 at other points (2**-9 relative each, at
@@ -600,3 +723,73 @@ def test_block_sparse_rejects_what_it_does_not_take(dev):
                                          (32, 32), p.n_blocks_n)
     with pytest.raises(NotImplementedError):
         ops.block_sparse_matmul(x.to(torch.int8), w, (32, 32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N,block,keep", [
+    (98, 2048, 512, (64, 64), 1.0),     # ResNet50 conv5_x: plan splits 9
+    (98, 2048, 512, (64, 64), 0.2),
+    (17, 960, 640, (64, 64), 0.5),
+    (1, 480, 400, (48, 80), 1.0),
+    (70, 96, 72, (32, 24), 1.0),
+    (33, 240, 200, (12, 20), 0.5),      # bf16: 4-byte copies
+    (9, 63, 35, (7, 5), 1.0),           # element loads
+])
+def test_block_sparse_every_split(dev, M, K, N, block, keep, dtype):
+    """Every split of a column's active blocks (1, 2, 3, 16 and the
+    plan's: more splits than a column has blocks leaves some empty),
+    every copy width, ragged M: within the tolerance of the plain
+    version, two calls giving the same bits, empty columns zero."""
+    x, w = _bs_inputs(M, K, N, block, keep, dtype, dev, seed=M + K)
+    p = block_sparse.pack_blocks(w, block, dtype, dev)
+    args = (p.w_blocks, p.meta, p.offsets, block, p.n_blocks_n)
+    want = ref.block_sparse_matmul_plain(x, *args)
+    planned = block_sparse.plan(M, block, p.n_blocks_n, p.n_active, dtype)
+    empty = torch.from_numpy(~p.mask.any(axis=0)).repeat_interleave(
+        block[1]).to(dev)
+    for splits in sorted({1, 2, 3, 16, planned.splits}):
+        got = block_sparse.block_sparse_launch(x, *args, splits)
+        again = block_sparse.block_sparse_launch(x, *args, splits)
+        torch.cuda.synchronize()
+        ok, err = _bs_close(got, want)
+        assert ok, (splits, err)
+        assert torch.equal(got, again), splits
+        assert bool((got[:, empty] == 0).all())
+
+
+def test_block_sparse_takes_unaligned_x(dev):
+    """An x that starts off a 16-byte boundary takes narrower copies."""
+    x, w = _bs_inputs(40, 256, 128, (64, 64), 1.0, torch.bfloat16, dev)
+    p = block_sparse.pack_blocks(w, (64, 64), torch.bfloat16, dev)
+    args = (p.w_blocks, p.meta, p.offsets, (64, 64), p.n_blocks_n)
+    buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=dev)
+    x_off = buf[2:].view(x.shape)
+    x_off.copy_(x)
+    got = block_sparse.block_sparse_matmul(x_off, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, block_sparse.block_sparse_matmul(x, *args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_block_sparse_graph_replay_equals_eager(dev, dtype):
+    """A split launch captured in a CUDA graph and replayed on new inputs
+    equals the eager call on them, bit for bit."""
+    M, K, N, block = 98, 2048, 512, (64, 64)
+    x, w = _bs_inputs(M, K, N, block, 1.0, dtype, dev)
+    p = block_sparse.pack_blocks(w, block, dtype, dev)
+    args = (p.w_blocks, p.meta, p.offsets, block, p.n_blocks_n)
+    assert block_sparse.plan(M, block, p.n_blocks_n, p.n_active,
+                             dtype).splits > 1
+    block_sparse.block_sparse_matmul(x, *args)        # first launch: eager
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = block_sparse.block_sparse_matmul(x, *args)
+    g = torch.Generator().manual_seed(1)
+    for _ in range(2):
+        x.copy_(torch.randn((M, K), generator=g).to(dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, block_sparse.block_sparse_matmul(x, *args))
