@@ -24,7 +24,15 @@
    and every conv shape — of an im2col built outside the timed region,
    K zero-padded to a multiple of 8), checked against the kernel's int32
    output; the conv lines also print each shape's launch plan
-   (``conv_implicit.plan``: copy widths, tiles, splits x chunks);
+   (``conv_implicit.plan``: copy widths, tiles, splits x chunks); the
+   depthwise kernel at MobileNetV2's ten shapes is held tighter (y 0 ulp,
+   amax equal, no y_q code off) and prints its plan
+   (``conv_depthwise.plan``: slice, rows per band, column words, copy
+   width, threads, grid, shared memory); its ``profile_g`` zero counts
+   at three shapes (counted in the epilogue) and one (recounted on y)
+   equal the plain version's dict, with y, amax and acc the same with
+   profiling on and off; a ``[floor]`` line times one trivial graph node
+   (a 2-element ``torch.zeros``, a 2-element add) under the same timer;
 2b. drives ``ops.block_sparse_matmul`` (no served path of the JAX package
    calls it) in f32 and bf16, TF32 off: (A) the paper's recipe at every
    distinct shape of ResNet50's 1x1 convs (224 px, microbatch 2) —
@@ -52,7 +60,8 @@
    forward on the CPU's plain versions, 1- and 2-stage logits
    bit-identical, and the launch counters of every kernel (set to 0
    just before each run, read just after) against the path's count per
-   microbatch;
+   microbatch; each 1-stage run's profile prints ``conv_mma_kernel`` and
+   ``conv_dw_kernel`` ms (MobileNetV2's must show the latter);
 4. serves SmolLM-360M at full width (32 layers, d 960, 15/5 heads, vocab
    49152; seeded random weights initialised and compiled on the card)
    through the LM ``ServingEngine`` in ``int8`` and ``sparse_cfmm``: 8
@@ -364,22 +373,28 @@ def check_conv_kernel(kind, c):
                 ulps=ulps, y_q_mismatch=mism, plan=list(cplan))
 
 
-def check_depthwise(C, hw, stride, dev, gen):
-    """The depthwise kernel at one of MobileNetV2's shapes (ReLU, no
-    shortcut, as served) against its plain version; the library yardstick
-    is an f32 grouped ``F.conv2d`` of the int8-valued inputs, whose sums
-    are exact (|acc| < 2**24), so its result equals the accumulators."""
+def dw_case(C, hw, stride, dev, gen, N=2, k=3):
+    """Inputs of one of MobileNetV2's depthwise convs as served: int8
+    activations, INT7 tap-major weights, per-row dequant rows, bias."""
     from repro_torch.core.quantize import quantize_int7
-    from repro_torch.kernels import conv_depthwise, ref
-    N, k = 2, 3
     x = torch.randint(-127, 128, (N, hw, hw, C), generator=gen,
                       dtype=torch.int8)
     qt = quantize_int7(torch.randn((k * k, C), generator=gen) / 3, axis=-1)
     x_scale = 0.02 + 0.01 * torch.rand((N,), generator=gen)
     eff = (x_scale.reshape(-1, 1) * qt.scale.reshape(1, -1)).float()
     bias = 0.1 * torch.randn((C,), generator=gen)
-    x, w, eff, bias = (t.to(dev).contiguous()
-                       for t in (x, qt.values, eff, bias))
+    return tuple(t.to(dev).contiguous() for t in (x, qt.values, eff, bias))
+
+
+def check_depthwise(C, hw, stride, dev, gen):
+    """The depthwise kernel at one of MobileNetV2's shapes (ReLU, no
+    shortcut, as served) against its plain version: accumulators equal,
+    y within 0 ulp, amax equal, no y_q code off; the library yardstick is
+    an f32 grouped ``F.conv2d`` of the int8-valued inputs, whose sums are
+    exact (|acc| < 2**24), so its result equals the accumulators."""
+    from repro_torch.kernels import conv_depthwise, ref
+    N, k = 2, 3
+    x, w, eff, bias = dw_case(C, hw, stride, dev, gen, N, k)
     args = (x, w, eff, bias, None)
     kw = dict(k=k, stride=stride, relu=True)
     label = f"{C}@{hw}/s{stride}"
@@ -388,6 +403,9 @@ def check_depthwise(C, hw, stride, dev, gen):
                                                         return_acc=True, **kw)
     dy, ulps, mism = compare_conv_outputs(f"conv_depthwise {label}", acc,
                                           acc_p, y, y_p, amax, amax_p)
+    check(ulps == 0 and mism == 0 and torch.equal(amax, amax_p),
+          f"conv_depthwise {label}: y off by {ulps} ulp, {mism} codes, "
+          f"amax equal {torch.equal(amax, amax_p)}")
     ms = median_ms(lambda: conv_depthwise.conv2d_dw(*args, **kw))
     plain_ms = median_ms(lambda: conv_depthwise.conv2d_dw_plain(*args, **kw),
                          per_graph=2)
@@ -404,14 +422,63 @@ def check_depthwise(C, hw, stride, dev, gen):
     check(torch.equal(lib().permute(0, 2, 3, 1), acc.float()),
           f"conv_depthwise {label}: F.conv2d disagrees with the kernel")
     library_ms = median_ms(lib)
+    p = conv_depthwise.plan(N, hw, hw, C, k, stride)
+    plan_txt = (f"cb={p.cb} rows={p.rows} cw={p.cw} vec={p.vec} "
+                f"threads={p.threads} grid={N * p.n_bands * p.n_slices} "
+                f"smem={p.smem}")
     print(f"[kernel] conv_depthwise {label:16s} acc_equal=True "
-          f"max|dy|={dy:.3g} ({ulps} ulp) y_q_mismatch={mism} "
+          f"max|dy|={dy:.3g} ({ulps} ulp) y_q_mismatch={mism} amax_equal=True "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={b_ms:.5f} ({b_by}) library_ms={fmt(library_ms)}",
-          flush=True)
+          f"bound_ms={b_ms:.5f} ({b_by}) library_ms={fmt(library_ms)} "
+          f"{plan_txt}", flush=True)
     return dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, max_abs_err=dy,
-                ulps=ulps, y_q_mismatch=mism)
+                ulps=ulps, y_q_mismatch=mism, plan=list(p))
+
+
+# (DW_SHAPES entry, coarse_in group size): counted in the kernel's
+# epilogue at the first three, recounted on y at the last (a slice of 32)
+DW_ZERO_COUNTS = [((144, 56, 1), 8), ((576, 14, 2), 8), ((960, 7, 1), 4),
+                  ((576, 14, 2), 48)]
+
+
+def check_dw_zero_counts(shape, g, dev, gen):
+    """The ``profile_g`` zero counts at one MobileNetV2 shape: equal to
+    the plain version's dict, and y, amax, acc the same with profiling
+    on and off."""
+    from repro_torch.kernels import conv_depthwise
+    C, hw, stride = shape
+    x, w, eff, bias = dw_case(C, hw, stride, dev, gen)
+    args = (x, w, eff, bias, None)
+    kw = dict(k=3, stride=stride, relu=True, return_acc=True)
+    *on, zc = conv_depthwise.conv2d_dw(*args, profile_g=g, **kw)
+    off = conv_depthwise.conv2d_dw(*args, **kw)
+    zc_p = conv_depthwise.conv2d_dw_plain(*args, profile_g=g, **kw)[-1]
+    torch.cuda.synchronize()
+    label = f"{C}@{hw}/s{stride} g={g}"
+    check(all(torch.equal(a, b) for a, b in zip(on, off)),
+          f"conv_depthwise {label}: outputs change with profiling")
+    for key in zc_p:
+        check(torch.equal(zc[key], zc_p[key]),
+              f"conv_depthwise {label}: zero count {key} differs")
+    cb = conv_depthwise.plan(2, hw, hw, C, 3, stride).cb
+    route = "epilogue" if cb % g == 0 else "recount on y"
+    print(f"[kernel] conv_depthwise zero counts {label}: equal to the plain "
+          f"version ({route}; row_zeros {zc['row_zeros'].tolist()}, "
+          f"all-zero cells {float(zc['group_allzero'].sum()):.0f}); outputs "
+          "equal with profiling on and off", flush=True)
+
+
+def floor_line(card):
+    """The time of one trivial graph node under ``median_ms``: a
+    2-element fill (``torch.zeros``) and a 2-element add."""
+    a = torch.ones(2, device="cuda")
+    zeros_ms = median_ms(lambda: torch.zeros(2, device="cuda"))
+    add_ms = median_ms(lambda: a + a)
+    print(f"[floor] one graph node under median_ms: torch.zeros(2) "
+          f"{zeros_ms:.4f} ms, 2-element add {add_ms:.4f} ms on {card}",
+          flush=True)
+    return dict(zeros_ms=zeros_ms, add_ms=add_ms)
 
 
 def check_cfmm(name, M, K, N, dev, gen):
@@ -826,8 +893,8 @@ def profile_serve(eng, images, label):
     """Where a served batch's time goes: one more run of ``eng`` under
     ``torch.profiler``; prints wall time, the card's busy time (sum of
     kernel times on the one stream) and the kernels that take most.
-    Returns (wall ms, busy ms, conv_mma_kernel ms) or None when the
-    profiler saw no kernels."""
+    Returns (wall ms, busy ms, conv_mma_kernel ms, conv_dw_kernel ms) or
+    None when the profiler saw no kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.pipeline import PipelineRequest
     reqs = [PipelineRequest(rid=i, images=im) for i, im in enumerate(images)]
@@ -853,7 +920,12 @@ def profile_serve(eng, images, label):
     conv_ms = sum(e.self_device_time_total for e in events
                   if "conv_mma_kernel" in e.key) / 1e3
     check(conv_ms > 0, f"{label}: the profile shows no conv_mma_kernel")
-    print(f"[profile] {label}: conv_mma_kernel {conv_ms:.3f} ms", flush=True)
+    dw_ms = sum(e.self_device_time_total for e in events
+                if "conv_dw_kernel" in e.key) / 1e3
+    check(dw_ms > 0 or not label.startswith("mobilenet_v2"),
+          f"{label}: the profile shows no conv_dw_kernel")
+    print(f"[profile] {label}: conv_mma_kernel {conv_ms:.3f} ms, "
+          f"conv_dw_kernel {dw_ms:.3f} ms", flush=True)
     print(f"[profile] {label} n_stages=1: wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%; the port's kernels "
@@ -862,7 +934,7 @@ def profile_serve(eng, images, label):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:5d}  {e.key[:90]}", flush=True)
-    return wall_ms, busy_ms, conv_ms
+    return wall_ms, busy_ms, conv_ms, dw_ms
 
 
 def model_config(model):
@@ -986,7 +1058,7 @@ def serve(kernels, card):
                 prof = profile_serve(eng, images, f"{model}/{mode}")
                 if prof is not None:
                     (res["profile_wall_ms"], res["device_busy_ms"],
-                     res["conv_kernel_ms"]) = prof
+                     res["conv_kernel_ms"], res["dw_kernel_ms"]) = prof
             results[(model, mode, n_stages)] = res
         if len(by_stages) == 2:
             check(np.array_equal(by_stages[1], by_stages[2]),
@@ -1393,6 +1465,14 @@ def main() -> int:
                                for sp in FLASH_SHAPES]
     rows["conv_depthwise"] = [check_depthwise(*s, dev, gen)
                               for s in DW_SHAPES]
+    for shape, g in DW_ZERO_COUNTS:
+        check_dw_zero_counts(shape, g, dev, gen)
+    dw_ms = sum(r["ms"] for r in rows["conv_depthwise"])
+    dw_lib = sum(r["library_ms"] for r in rows["conv_depthwise"])
+    print(f"[kernel] conv_depthwise over {len(DW_SHAPES)} shapes: kernel "
+          f"{dw_ms:.4f} ms, cuDNN {dw_lib:.4f} ms, kernel/cudnn="
+          f"{dw_ms / dw_lib:.2f}", flush=True)
+    floor = floor_line(card)
     rows["cfmm_matmul"] = [check_cfmm(*s, dev, gen) for s in CFMM_SHAPES]
     print(f"[time] kernel phase done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
@@ -1463,7 +1543,7 @@ def main() -> int:
         })
     serve_line = [{"path": f"{m}/{mode}", "n_stages": n, **v}
                   for (m, mode, n), v in served.items()]
-    print(json.dumps({"serve": serve_line}), flush=True)
+    print(json.dumps({"serve": serve_line, "floor": floor}), flush=True)
     print(json.dumps({"lm_serve": lm_served}), flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"[card] {card}", flush=True)

@@ -150,18 +150,31 @@ def conv2d_dw(x_q: torch.Tensor, values: torch.Tensor, k: int, stride: int,
               *, x_scale, w_scale: torch.Tensor,
               gamma: torch.Tensor | None = None,
               beta: torch.Tensor | None = None, shortcut=None,
-              relu: bool = True, quant_out: bool = False):
+              relu: bool = True, quant_out: bool = False,
+              zero_count: int | None = None):
     """Fused depthwise int8 SAME conv + Collector: the depthwise sibling
     of ``conv2d``, with the same arguments, Collector and requant tail.
-    ``values`` is the compiled tap-major ``(k*k, C)`` int8 weight."""
+    ``values`` is the compiled tap-major ``(k*k, C)`` int8 weight.
+
+    zero_count: opt-in activation-sparsity profiling — the coarse_in group
+    size to count zeros at.  Appends ``ref.zero_counts_ref``'s dict to the
+    return: ``(y, zc)`` or ``(y_q, y_scale, zc)``.  On the card the kernel
+    counts in its epilogue where its plan's channel slice is a multiple of
+    the group size, else the counts are recounted on ``y``
+    (kernels/conv_depthwise.py); ``y`` and ``y_q`` are the same with it
+    or without."""
     C = x_q.shape[3]
     assert tuple(values.shape) == (k * k, C), (tuple(values.shape), k, C)
     eff_rows, eff_bias, sc, per_row = _collector_args(
         x_q, x_scale, w_scale, gamma, beta, shortcut, C)
-    y, amax_rows = _dw_kernel(x_q.contiguous(), values.contiguous(),
-                              eff_rows, eff_bias, sc, k=k, stride=stride,
-                              relu=relu)
-    return _requant(y, amax_rows, per_row) if quant_out else y
+    out = _dw_kernel(x_q.contiguous(), values.contiguous(), eff_rows,
+                     eff_bias, sc, k=k, stride=stride, relu=relu,
+                     profile_g=zero_count)
+    y = out[0]
+    res = _requant(y, out[1], per_row) if quant_out else y
+    if zero_count is None:
+        return res
+    return (*res, out[2]) if quant_out else (y, out[2])
 
 
 def _collector_args(x_q, x_scale, w_scale, gamma, beta, shortcut,

@@ -284,6 +284,32 @@ def _collector(acc: torch.Tensor, eff_scale: torch.Tensor,
     return torch.clamp_min(y, 0.0) if relu else y
 
 
+def zero_counts_ref(y: torch.Tensor, group_size: int) -> dict:
+    """Exact activation zero counts of a conv output (the sparsity-
+    profiling oracle; reads ``y``, changes nothing).
+
+    y (N, H, W, C) f32 post-Collector output; channels split into
+    C/group_size ``coarse_in`` groups (group i = channels
+    [i*g, (i+1)*g)).  Returns the profiler's dict (the JAX package's
+    ``obs/sparsity.AUX_KEYS``), all f32: per-image zero counts, per-group
+    zero counts, per-group all-zero (image, pixel) cell counts, and the
+    elements-per-image and cell totals the fractions divide by."""
+    N, H, W, C = y.shape
+    if C % group_size:
+        raise ValueError(f"{C} channels do not split into groups of "
+                         f"{group_size}")
+    zm = y == 0.0
+    z5 = zm.reshape(N, H, W, C // group_size, group_size)
+    f32 = dict(dtype=torch.float32, device=y.device)
+    return {
+        "row_zeros": zm.sum(dim=(1, 2, 3)).float(),
+        "group_zeros": z5.sum(dim=(0, 1, 2, 4)).float(),
+        "group_allzero": z5.all(dim=4).sum(dim=(0, 1, 2)).float(),
+        "elems_per_row": torch.full((), H * W * C, **f32),
+        "cells": torch.full((), N * H * W, **f32),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------

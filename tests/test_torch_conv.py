@@ -350,3 +350,74 @@ def test_conv2d_dw_bit_equal(stride, C, sc_kind, relu, scale):
     np.testing.assert_array_equal(y_q.numpy(), yq_j)
     np.testing.assert_array_equal(s_y.numpy(), sy_j)
     assert s_y.shape == sy_j.shape
+
+
+# ---------------------------------------------------------------------------
+# Depthwise zero counts (``zero_count=``): the port against JAX's dict
+# ---------------------------------------------------------------------------
+
+DW_ZC = list(itertools.product((4, 8), (False, True)))
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_zc_jax(stride, C):
+    """JAX ``ops.conv2d_dw(zero_count=g)`` for every (g, quant_out) of
+    ``DW_ZC`` at one (stride, C), per-row scales, ReLU, from one jit."""
+    c = _dw_case(stride, C)
+
+    def run(x, values, scale_w, s_row, gamma, beta):
+        out = []
+        for g, quant_out in DW_ZC:
+            out.append(jops.conv2d_dw(x, values, 3, stride, x_scale=s_row,
+                                      w_scale=scale_w, gamma=gamma,
+                                      beta=beta, relu=True,
+                                      quant_out=quant_out, zero_count=g))
+        return out
+
+    names = ("x", "values", "scale_w", "s_row", "gamma", "beta")
+    res = jax.jit(run)(*(jnp.asarray(c[n]) for n in names))
+    return jax.tree.map(np.asarray, res)
+
+
+@pytest.mark.parametrize("g,quant_out", DW_ZC)
+@pytest.mark.parametrize("stride,C", DW_GEOMS)
+def test_conv2d_dw_zero_counts_equal(stride, C, g, quant_out):
+    """Every key of the zero-count dict, and y or (y_q, s_y), equal JAX's
+    under its exact jnp lowering."""
+    c = _dw_case(stride, C)
+    want = _dw_zc_jax(stride, C)[DW_ZC.index((g, quant_out))]
+    t = torch.from_numpy
+    got = tops.conv2d_dw(t(c["x"]), t(c["values"]), 3, stride,
+                         x_scale=t(c["s_row"]), w_scale=t(c["scale_w"]),
+                         gamma=t(c["gamma"]), beta=t(c["beta"]), relu=True,
+                         quant_out=quant_out, zero_count=g)
+    assert len(got) == len(want) == (3 if quant_out else 2)
+    for a, b in zip(got[:-1], want[:-1]):
+        np.testing.assert_array_equal(a.numpy(), b)
+    zc, zc_j = got[-1], want[-1]
+    assert sorted(zc) == sorted(zc_j)
+    for key in zc:
+        assert zc[key].dtype == torch.float32
+        assert tuple(zc[key].shape) == zc_j[key].shape, key
+        np.testing.assert_array_equal(zc[key].numpy(), zc_j[key])
+    assert float(zc["row_zeros"].min()) > 0
+    assert g > 4 or float(zc["group_allzero"].sum()) > 0
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 24])
+def test_zero_counts_ref_matches_jax(g):
+    """The port's ``ref.zero_counts_ref`` against JAX's on the same y:
+    a ReLU'd map with whole zero groups planted."""
+    from repro_torch.kernels import ref as tref
+    rng = np.random.RandomState(g)
+    y = np.maximum(rng.randn(2, 5, 3, 24), 0).astype(np.float32)
+    y[0, 1, :, :g] = 0.0
+    y[1, :, 2, -g:] = 0.0
+    got = tref.zero_counts_ref(torch.from_numpy(y), g)
+    want = jax.tree.map(np.asarray, jref.zero_counts_ref(jnp.asarray(y), g))
+    assert sorted(got) == sorted(want)
+    for key in got:
+        assert got[key].dtype == torch.float32
+        np.testing.assert_array_equal(got[key].numpy(), want[key])
+    with pytest.raises(ValueError):
+        tref.zero_counts_ref(torch.from_numpy(y), 5)

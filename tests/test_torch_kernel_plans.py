@@ -30,8 +30,9 @@ from repro.core import compiled_linear as jcl
 from repro_torch import nn
 from repro_torch.core import compiled_linear as tcl
 from repro_torch.core.compiled_linear import _compile_leaf_2d, bitmap_pack
-from repro_torch.kernels import (block_sparse, cfmm_matmul, conv_implicit,
-                                 flash_attention, ops, ref, sparse_matvec)
+from repro_torch.kernels import (block_sparse, cfmm_matmul, conv_depthwise,
+                                 conv_implicit, flash_attention, ops, ref,
+                                 sparse_matvec)
 from repro_torch.kernels.bitmap import expand_bitmap_tile
 
 
@@ -437,6 +438,223 @@ def test_conv_tiles_across_images_keep_per_image_amax(N, hw, sc_kind, relu):
                               conv_implicit.BLOCK_M)
     assert torch.equal(y, y_p)
     assert torch.equal(amax, amax_p)
+
+
+# ---------------------------------------------------------------------------
+# conv_depthwise.plan: the depthwise kernel's tiles
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's DW_SHAPES (C, input hw, stride), k = 3, N = 2 -> (cb,
+# rows, cw, vec, threads, n_slices, n_bands, smem): two waves of the SMs
+# in slices of 32 or more where the shape allows, else one (32@112/s1,
+# 192@28/s2, 576@14/s2); 144 channels take slices of 16, their widest
+DW_PLANS = [
+    ((32, 112, 1), (32, 1, 8, 16, 256, 1, 112, 11232)),
+    ((96, 112, 2), (32, 1, 12, 16, 128, 3, 56, 16560)),
+    ((144, 56, 1), (16, 3, 4, 16, 256, 9, 19, 4784)),
+    ((144, 56, 2), (16, 1, 4, 16, 128, 9, 28, 2880)),
+    ((192, 28, 1), (32, 1, 8, 16, 128, 6, 28, 3168)),
+    ((192, 28, 2), (32, 1, 12, 16, 128, 6, 14, 4464)),
+    ((384, 14, 1), (32, 1, 8, 16, 128, 12, 14, 1824)),
+    ((576, 14, 1), (32, 1, 8, 16, 128, 18, 14, 1824)),
+    ((576, 14, 2), (32, 2, 12, 16, 128, 18, 4, 3888)),
+    ((960, 7, 1), (32, 1, 8, 16, 64, 30, 7, 1152)),
+]
+
+
+@pytest.mark.parametrize("shape,want", DW_PLANS)
+def test_dw_plan_at_chip_smoke_shapes(shape, want):
+    C, hw, stride = shape
+    assert tuple(conv_depthwise.plan(2, hw, hw, C, 3, stride)) == want
+
+
+def _served_dwconvs():
+    """(N, H, W, C, k, stride) of every depthwise conv of MobileNetV2 at
+    224 px and microbatch 2, from its graph."""
+    from repro_torch.configs.mobilenet_v2_compiled import CONFIG
+    g = CONFIG.graph()
+    info = g.shapes()
+    assert g.in_hw == 224
+    return sorted({(2, info[n.inputs[0]].hw, info[n.inputs[0]].hw, n.c_in,
+                    n.k, n.stride) for n in g.nodes if n.op == "dwconv"})
+
+
+# the shapes of the depthwise tests (here and on the card), other batch
+# sizes, widths and k
+DW_TEST_SHAPES = [
+    (2, 9, 9, 8, 3, 1), (2, 9, 9, 24, 3, 2), (2, 9, 9, 40, 3, 1),
+    (1, 9, 7, 16, 3, 2), (3, 7, 11, 960, 3, 2), (3, 13, 9, 3, 3, 1),
+    (1, 5, 15, 13, 5, 2), (2, 11, 11, 16, 5, 1), (3, 9, 9, 24, 5, 2),
+    (3, 10, 10, 13, 3, 1), (2, 8, 8, 40, 3, 2), (1, 224, 224, 32, 3, 1),
+    (8, 112, 112, 96, 3, 2), (32, 56, 56, 144, 3, 1), (1, 7, 7, 960, 7, 1),
+    (1, 1, 1, 4, 3, 1), (64, 14, 14, 576, 3, 1), (2, 6, 6, 12, 3, 1),
+]
+
+
+def _check_dw_plan(N, H, W, C, k, s):
+    """The bands and slices cover every output once; a power-of-two slice
+    the copy width divides; 16-byte copies land 16-byte aligned; shared
+    memory fits and is what the kernel computes; threads a whole number
+    of warps and of channel groups; the grid fills two waves of the SMs
+    unless no slice of ``WIDE_SLICE`` or more (or the widest) can at one
+    row per band, and one wave unless even the narrowest slice cannot."""
+    p = conv_depthwise.plan(N, H, W, C, k, s)
+    _, _, h = ref.same_pads(H, k, s)
+    _, _, w = ref.same_pads(W, k, s)
+    assert (p.n_bands - 1) * p.rows < h <= p.n_bands * p.rows
+    assert (p.n_slices - 1) * p.cb < C <= p.n_slices * p.cb
+    assert p.cb in (4, 8, 16, 32, 64) and p.cb % p.vec == 0
+    assert p.vec == conv_depthwise.copy_width(C)
+    assert p.cw >= p.cb // 4
+    if p.vec == 16:                     # column starts and chunks aligned
+        assert (p.cw * 4) % 16 == 0 and p.cb % 16 == 0
+    assert p.smem == conv_depthwise.smem_bytes(p.rows, w, k, s, p.cw, p.cb)
+    assert p.smem <= conv_depthwise.MAX_SMEM
+    assert p.threads % 32 == 0 and p.threads % (p.cb // 4) == 0
+    jobs = p.rows * w * p.cb // 4
+    assert p.threads == (256 if jobs > 512 else min(128, -(-jobs // 32) * 32))
+    grid = N * p.n_bands * p.n_slices
+    slices = conv_depthwise._slices(C, p.vec)
+    wide = min(cb for cb in slices
+               if cb >= min(conv_depthwise.WIDE_SLICE, slices[0]))
+    sms = conv_depthwise.SMS
+    if grid < 2 * sms:
+        assert N * h * -(-C // wide) < 2 * sms
+    if grid < sms:
+        assert N * h * -(-C // slices[-1]) < sms
+        assert (p.cb, p.rows) == (slices[-1], 1)
+    return grid
+
+
+@pytest.mark.parametrize("shape", DW_TEST_SHAPES + [
+    (2, hw, hw, C, 3, s) for (C, hw, s), _ in DW_PLANS])
+def test_dw_plan_covers_fits_and_fills_the_card(shape):
+    _check_dw_plan(*shape)
+
+
+def test_dw_plan_at_served_shapes():
+    """MobileNetV2's 17 depthwise convs (10 shapes), each a wave or more
+    of blocks."""
+    shapes = _served_dwconvs()
+    assert len(shapes) == 10
+    for shape in shapes:
+        assert _check_dw_plan(*shape) >= conv_depthwise.SMS
+
+
+@pytest.mark.parametrize("vec", [16, 4, 1])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("n_cg", [1, 2, 4, 8, 16])
+def test_dw_column_words_spread_the_banks(n_cg, stride, vec):
+    """A warp's reads of consecutive pixels hit distinct banks at stride
+    1 and at most two ways at stride 2, with 16-byte copies' columns a
+    multiple of 16 bytes."""
+    if vec == 16 and n_cg < 4:
+        return                       # 16-byte copies need slices of 16
+    cw = conv_depthwise.column_words(n_cg, stride, vec)
+    assert n_cg <= cw < n_cg + 16 and (vec != 16 or cw % 4 == 0)
+    banks = [(p * stride * cw + c) % 32 for p in range(32 // n_cg)
+             for c in range(n_cg)]
+    worst = max(banks.count(b) for b in banks)
+    assert worst == 1 if stride == 1 else worst <= 2
+    if stride == 2 and n_cg >= 8:
+        assert worst == 1
+
+
+def _dw_tile_replay(x, w_tap, eff, bias, sc, k, stride, relu, p, g):
+    """The depthwise kernel's decomposition by plan ``p``, with plain
+    arithmetic: per block (image, band, slice), the halo'd band of the
+    zero-padded input (channels zero past C), its int32 tap-MACs, the
+    Collector, the block's max|y| over its valid outputs and its zero
+    counts per group of ``g``; then their reduction: the per-image max
+    of the partials (the kernel's atomicMax per block), the counts
+    summed."""
+    N, H, W, C = x.shape
+    xp, h, w = ref.pad_same_nhwc(x, k, stride)
+    wp = (w - 1) * stride + k
+    c_pad = p.n_slices * p.cb
+    xp = torch.nn.functional.pad(xp, (0, c_pad - C)).int()
+    w_pad = torch.nn.functional.pad(w_tap, (0, c_pad - C)).int()
+    acc = torch.zeros((N, h, w, C), dtype=torch.int32)
+    y = torch.zeros((N, h, w, C))
+    part = torch.zeros((N, p.n_bands * p.n_slices))
+    zg = torch.zeros((N, C // g), dtype=torch.int32)
+    za = torch.zeros_like(zg)
+    for img in range(N):
+        for band in range(p.n_bands):
+            r0 = band * p.rows
+            R = min(p.rows, h - r0)
+            for sl in range(p.n_slices):
+                c0, cv = sl * p.cb, min(p.cb, C - sl * p.cb)
+                tile = xp[img, r0 * stride:r0 * stride + (R - 1) * stride
+                          + k, :wp, c0:c0 + p.cb]
+                a = torch.zeros((R, w, p.cb), dtype=torch.int32)
+                for dy in range(k):
+                    for dx in range(k):
+                        a += (tile[dy:dy + (R - 1) * stride + 1:stride,
+                                   dx:dx + (w - 1) * stride + 1:stride]
+                              * w_pad[dy * k + dx, c0:c0 + p.cb])
+                a = a[None, :, :, :cv]
+                at = (img, slice(r0, r0 + R), slice(None),
+                      slice(c0, c0 + cv))
+                if isinstance(sc, tuple):
+                    sc_t = (sc[0][at][None], sc[1][img:img + 1])
+                else:
+                    sc_t = None if sc is None else sc[at][None]
+                y_t = ref._collector(a, eff[img, c0:c0 + cv], bias[c0:c0 + cv],
+                                     sc_t, relu)[0]
+                acc[at], y[at] = a[0], y_t
+                part[img, band * p.n_slices + sl] = y_t.abs().max()
+                z = (y_t == 0).reshape(R, w, cv // g, g)
+                grp = slice(c0 // g, c0 // g + cv // g)
+                zg[img, grp] += z.sum(dim=(0, 1, 3)).int()
+                za[img, grp] += z.all(dim=3).sum(dim=(0, 1)).int()
+    return acc, y, part.amax(dim=1), zg, za
+
+
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+@pytest.mark.parametrize("N,H,W,C,k,stride,rows,cb", [
+    (2, 9, 7, 13, 3, 1, None, None),   # ragged C, odd W
+    (3, 7, 9, 3, 3, 2, None, None),    # C = 3
+    (1, 11, 11, 24, 5, 2, 2, 16),      # k = 5, ragged slice of 16
+    (2, 14, 14, 40, 3, 1, 3, 8),       # ragged last band
+    (2, 8, 13, 16, 3, 2, None, None),
+    (2, 12, 12, 64, 3, 1, 5, 32),
+])
+def test_dw_tile_replay_matches_plain(N, H, W, C, k, stride, rows, cb,
+                                      sc_kind):
+    """The kernel's tiles, replayed: int32 accumulators, y, the per-image
+    amax from the per-block partials and the zero counts from the
+    per-block counts equal the plain version bit for bit."""
+    g = torch.Generator().manual_seed(N * H * W + C)
+    x = torch.randint(-127, 128, (N, H, W, C), generator=g, dtype=torch.int8)
+    w_tap = torch.randint(-63, 64, (k * k, C), generator=g, dtype=torch.int8)
+    eff = 1e-3 * torch.rand((N, C), generator=g)
+    bias = 0.1 * torch.randn((C,), generator=g) - 0.05
+    _, _, h = ref.same_pads(H, k, stride)
+    _, _, w = ref.same_pads(W, k, stride)
+    sc = None
+    if sc_kind == "f32":
+        sc = torch.randn((N, h, w, C), generator=g)
+    elif sc_kind == "int8":
+        sc = (torch.randint(-127, 128, (N, h, w, C), generator=g,
+                            dtype=torch.int8), torch.rand((N,), generator=g))
+    p = conv_depthwise.plan(N, H, W, C, k, stride)
+    if rows is not None:
+        p = p._replace(rows=rows, n_bands=-(-h // rows), cb=cb,
+                       n_slices=-(-C // cb))
+    gs = 1 if C % 2 else (4 if p.cb % 4 == 0 and C % 4 == 0 else 2)
+    acc, y, amax, zg, za = _dw_tile_replay(x, w_tap, eff, bias, sc, k,
+                                           stride, True, p, gs)
+    y_p, amax_p, acc_p, zc_p = conv_depthwise.conv2d_dw_plain(
+        x, w_tap, eff, bias, sc, k=k, stride=stride, relu=True,
+        return_acc=True, profile_g=gs)
+    assert torch.equal(acc, acc_p) and torch.equal(y, y_p)
+    assert torch.equal(amax, amax_p)
+    zc = conv_depthwise.zero_count_dict(zg, za, h, w, C)
+    assert zc.keys() == zc_p.keys()
+    for key in zc:
+        assert torch.equal(zc[key], zc_p[key]), key
+    assert float(zc["group_allzero"].sum()) > 0
 
 
 # ---------------------------------------------------------------------------

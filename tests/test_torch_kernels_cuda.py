@@ -17,7 +17,12 @@ across images and a ragged last tile, n_out off multiples of 8, K split
 over the grid at full-width ResNet50 7x7 and 14x14 shapes, the sparse
 split's popcount start past 8192 bitmap rows), and a split launch's
 CUDA-graph replay equal to the eager call; the depthwise kernel at
-MobileNetV2's channel counts and ragged ones; the cfmm matmul at the
+MobileNetV2's channel counts and ragged ones, at every branch of its
+plan (``conv_depthwise.plan``: copy width, channel slice, rows per band,
+column pad, threads), k = 5, odd maps, N = 1 and 3 and an unaligned
+view, its zero counts (``profile_g``) equal to the plain version's in
+both routes, and CUDA-graph replays and a second stream equal to the
+eager call; the cfmm matmul at the
 heads' shapes, SmolLM-360M's linear shapes and ragged ones, under every
 variant and split of its plan (``cfmm_matmul.plan``: ``rows`` or
 ``split``, K split over a cluster) and every copy width, with and
@@ -349,6 +354,199 @@ def test_conv_depthwise_matches_plain_at_mobilenet_shapes(dev, C, hw, stride):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _dw_case(N, hw, C, k, stride, sc_kind, dev, seed=0, w_hw=None):
+    """Depthwise inputs: int8 x (N, hw, w_hw or hw, C), INT7-range tap
+    weights, per-image dequant rows, bias and the shortcut."""
+    g = torch.Generator().manual_seed(seed)
+    W = w_hw or hw
+    x = torch.randint(-127, 128, (N, hw, W, C), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-63, 64, (k * k, C), generator=g, dtype=torch.int8)
+    eff = 1e-3 * torch.rand((N, C), generator=g)
+    bias = 0.1 * torch.randn((C,), generator=g)
+    h, wo = -(-hw // stride), -(-W // stride)
+    sc = None
+    if sc_kind == "f32":
+        sc = torch.randn((N, h, wo, C), generator=g).to(dev)
+    elif sc_kind == "int8":
+        sc = (torch.randint(-127, 128, (N, h, wo, C), generator=g,
+                            dtype=torch.int8).to(dev),
+              torch.rand((N,), generator=g).to(dev))
+    put = lambda t: t.to(dev).contiguous()
+    return put(x), put(w), put(eff), put(bias), sc
+
+
+def _dw_plans(p, stride):
+    """``p`` and the other branches of the depthwise launch: each narrower
+    copy width, every other channel slice from 4 to 64 that the copy width
+    allows (ragged past C), one, two, three rows per band and the whole
+    map, a padded column, one warp per block.  Slice and band counts and
+    shared memory are ``_dw_fix``'s."""
+    out = [p]
+    out += [p._replace(vec=v) for v in (4, 1) if v < p.vec]
+    out += [p._replace(cb=cb, cw=conv_depthwise.column_words(
+                cb // 4, stride, p.vec))
+            for cb in (4, 8, 16, 32, 64) if cb % p.vec == 0 and cb != p.cb]
+    out += [p._replace(rows=rows) for rows in (1, 2, 3, 1 << 20)]
+    out += [p._replace(cw=p.cw + 4), p._replace(threads=32)]
+    return out
+
+
+def _dw_fix(p, N, H, W, C, k, stride):
+    """A varied plan's slice and band counts and shared memory."""
+    _, _, h = ref.same_pads(H, k, stride)
+    _, _, w = ref.same_pads(W, k, stride)
+    rows = min(p.rows, h)
+    return p._replace(
+        rows=rows, n_slices=-(-C // p.cb), n_bands=-(-h // rows),
+        smem=conv_depthwise.smem_bytes(rows, w, k, stride, p.cw, p.cb))
+
+
+@pytest.mark.parametrize("N,hw,C,k,stride", [
+    (2, 112, 32, 3, 1), (2, 56, 144, 3, 2), (2, 14, 576, 3, 2),
+    (1, 9, 3, 3, 2),      # C = 3: bytes, one slice of 4
+    (3, 7, 13, 3, 1),     # C = 13: bytes, ragged slice
+    (2, 11, 16, 5, 1),    # k = 5: the generic instance
+    (1, 10, 960, 3, 1),   # 15 slices of 64
+    (3, 9, 24, 5, 2),     # k = 5, stride 2, 4-byte copies
+    (2, 8, 40, 3, 2),
+])
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+def test_conv_depthwise_every_plan_branch(dev, N, hw, C, k, stride, sc_kind):
+    """The wrapper's plan and every other branch of the launch (copy
+    width, slice, band, column pad, threads) equal the plain version in
+    acc, y and amax; one launch each."""
+    x, w, eff, bias, sc = _dw_case(N, hw, C, k, stride, sc_kind, dev,
+                                   seed=N + hw + C + k)
+    kw = dict(k=k, stride=stride, relu=sc_kind != "int8", return_acc=True)
+    want = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, sc, **kw)
+    p = conv_depthwise.plan(N, hw, hw, C, k, stride)
+    for q in _dw_plans(p, stride):
+        q = _dw_fix(q, N, hw, hw, C, k, stride)
+        if q.smem > conv_depthwise.MAX_SMEM:
+            continue
+        before = conv_depthwise.KERNEL.launches
+        got = conv_depthwise.dw_launch(x, w, eff, bias, sc, profile_g=None,
+                                       dplan=q, **kw)
+        torch.cuda.synchronize()
+        assert conv_depthwise.KERNEL.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), q
+
+
+@pytest.mark.parametrize("N,H,W,C,stride", [
+    (1, 9, 7, 16, 2), (3, 7, 11, 960, 2), (3, 13, 9, 3, 1), (1, 5, 15, 13, 2)])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv_depthwise_odd_maps(dev, N, H, W, C, stride, k, relu):
+    """Odd and non-square maps, N of 1 and 3, k = 3 and 5."""
+    x, w, eff, bias, sc = _dw_case(N, H, C, k, stride, "f32", dev,
+                                   seed=H * W + C, w_hw=W)
+    kw = dict(k=k, stride=stride, relu=relu, return_acc=True)
+    got = conv_depthwise.conv2d_dw(x, w, eff, bias, sc, **kw)
+    want = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, sc, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+@pytest.mark.parametrize("C", [16, 32])
+def test_conv_depthwise_takes_an_unaligned_view(dev, offset, C):
+    """An x_q view off 16 bytes takes 4-byte copies, off 4 bytes single
+    bytes; the result is the aligned call's."""
+    x, w, eff, bias, _ = _dw_case(2, 12, C, 3, 1, None, dev, seed=C)
+    buf = torch.empty(x.numel() + offset, dtype=torch.int8, device=dev)
+    x_off = buf[offset:].view(x.shape)
+    x_off.copy_(x)
+    kw = dict(k=3, stride=1, relu=True, return_acc=True)
+    got = conv_depthwise.conv2d_dw(x_off, w, eff, bias, **kw)
+    want = conv_depthwise.conv2d_dw(x, w, eff, bias, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,hw,C,stride,g", [
+    (2, 14, 576, 2, 8), (2, 28, 192, 1, 4), (3, 9, 64, 2, 16),
+    (2, 7, 960, 1, 64), (1, 8, 16, 1, 2), (2, 9, 13, 1, 1),
+    (2, 9, 48, 2, 24),    # a slice of 16: recounted on y
+    (2, 6, 12, 1, 3),     # C = 12, slice 4: recounted on y
+])
+@pytest.mark.parametrize("sc_kind", [None, "int8"])
+def test_conv_depthwise_zero_counts(dev, N, hw, C, stride, g, sc_kind):
+    """The zero counts equal the plain version's dict exactly, whether
+    the epilogue counts them or they are recounted on y; y, amax and acc
+    are the same with profiling on or off."""
+    x, w, eff, bias, sc = _dw_case(N, hw, C, 3, stride, sc_kind, dev,
+                                   seed=C + g)
+    bias = bias - 0.05          # more zeros after the ReLU
+    kw = dict(k=3, stride=stride, relu=True, return_acc=True)
+    *got, zc = conv_depthwise.conv2d_dw(x, w, eff, bias, sc, profile_g=g,
+                                        **kw)
+    off = conv_depthwise.conv2d_dw(x, w, eff, bias, sc, **kw)
+    *want, zc_p = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, sc,
+                                                 profile_g=g, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, off, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert zc.keys() == zc_p.keys()
+    for key in zc:
+        assert torch.equal(zc[key], zc_p[key]), key
+    assert float(zc["group_allzero"].sum()) > 0 or g > 4
+
+
+def test_conv_depthwise_graph_replay_equals_eager(dev):
+    """No state outlives a call (amax and the zero counts are zeroed by
+    launches of their own): eager calls, then two CUDA graphs of the
+    kernel (with and without zero counts) each replayed twice on new
+    inputs, and eager calls on a second stream, all equal the plain
+    version."""
+    N, hw, C = 2, 28, 192
+    x, w, eff, bias, sc = _dw_case(N, hw, C, 3, 1, "int8", dev, seed=5)
+    kw = dict(k=3, stride=1, relu=True, return_acc=True)
+    for _ in range(2):
+        conv_depthwise.conv2d_dw(x, w, eff, bias, sc, **kw)
+    torch.cuda.synchronize()
+    graph, graph_zc = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = conv_depthwise.conv2d_dw(x, w, eff, bias, sc, **kw)
+    with torch.cuda.graph(graph_zc):
+        out_zc = conv_depthwise.conv2d_dw(x, w, eff, bias, sc, profile_g=8,
+                                          **kw)
+    g = torch.Generator().manual_seed(6)
+    side = torch.cuda.Stream()
+    for _ in range(2):
+        x.copy_(torch.randint(-127, 128, x.shape, generator=g,
+                              dtype=torch.int8))
+        graph.replay()
+        graph_zc.replay()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            on_side = conv_depthwise.conv2d_dw(x, w, eff, bias, sc, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        *want, zc_p = conv_depthwise.conv2d_dw_plain(x, w, eff, bias, sc,
+                                                     profile_g=8, **kw)
+        for got in (out, out_zc[:3], on_side):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+        for key in zc_p:
+            assert torch.equal(out_zc[3][key], zc_p[key]), key
+
+
+def test_conv_depthwise_refuses_a_plan_it_does_not_take(dev):
+    x, w, eff, bias, _ = _dw_case(2, 7, 32, 3, 1, None, dev)
+    p = conv_depthwise.plan(2, 7, 7, 32, 3, 1)
+    kw = dict(k=3, stride=1, relu=True, return_acc=False, profile_g=None)
+    for bad in (p._replace(cb=24), p._replace(cw=2),
+                p._replace(threads=48), p._replace(threads=512),
+                p._replace(cb=8, cw=2),           # 16-byte copies of 8
+                p._replace(cw=10)):               # 16-byte copies unaligned
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            conv_depthwise.dw_launch(x, w, eff, bias, None, dplan=bad, **kw)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 10), (2, 2048, 1000),
