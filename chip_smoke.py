@@ -31,7 +31,11 @@
    width, threads, grid, shared memory); its ``profile_g`` zero counts
    at three shapes (counted in the epilogue) and one (recounted on y)
    equal the plain version's dict, with y, amax and acc the same with
-   profiling on and off; a ``[floor]`` line times one trivial graph node
+   profiling on and off; so do both conv kernels' zero counts
+   (``CONV_ZERO_COUNTS``: g = 4, 8, 32, 64 counted in the epilogue, at
+   tiles in one image and across images and under split K; g = 128
+   recounted on y), each printed with the call's time profiled and not;
+   a ``[floor]`` line times one trivial graph node
    (a 2-element ``torch.zeros``, a 2-element add) under the same timer;
 2b. drives ``ops.block_sparse_matmul`` (no served path of the JAX package
    calls it) in f32 and bf16, TF32 off: (A) the paper's recipe at every
@@ -62,6 +66,18 @@
    just before each run, read just after) against the path's count per
    microbatch; each 1-stage run's profile prints ``conv_mma_kernel`` and
    ``conv_dw_kernel`` ms (MobileNetV2's must show the latter);
+3b. serves full-width ResNet50 behind the port's ``ResNetFrontend``: 2
+   replicas x 1 stage on the one card, microbatch 2, the serve phase's
+   compiled trees (``fleet_phase``): a closed wave, then (a) an open-loop
+   ``poisson_plan`` wave of 16 requests of 1-3 images at 0.7 x its rows/s
+   (p50/p95 latency, queue depth, rows per replica, bubble attribution,
+   shed count), (b) the same requests with replica 1 killed at its step
+   2 (rows requeued), (c) a traced open-loop wave whose Chrome trace must
+   validate, (d) profiled waves (groups of 8) in ``int8`` and
+   ``sparse_cfmm`` whose sparsity snapshot must equal the CPU
+   ``reference_profile``; every request's logits bit-identical to the
+   single-engine card forward of its rows, the launch counters checked
+   per wave;
 4. serves SmolLM-360M at full width (32 layers, d 960, 15/5 heads, vocab
    49152; seeded random weights initialised and compiled on the card)
    through the LM ``ServingEngine`` in ``int8`` and ``sparse_cfmm``: 8
@@ -82,6 +98,7 @@ line.  It also fails without CUDA, and outside a checkout of the repo.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -467,6 +484,83 @@ def check_dw_zero_counts(shape, g, dev, gen):
           f"version ({route}; row_zeros {zc['row_zeros'].tolist()}, "
           f"all-zero cells {float(zc['group_allzero'].sum()):.0f}); outputs "
           "equal with profiling on and off", flush=True)
+
+
+# (CONV_SHAPES name, coarse_in group size) of the conv kernels' zero
+# counts: counted in the epilogue at g = 64 (over the two column warps,
+# tiles in one image), 8 (in a thread; conv3_x_1/a's 784 rows an image:
+# tiles cross images), 32 (over a quad; 196 rows an image, K split 6x6)
+# and 4 (49 rows an image, K split 9x8); recounted on y at g = 128 (a
+# group wider than the 64-channel tile, n_out 256)
+CONV_ZERO_COUNTS = [("conv2_x_2/b", 64), ("conv3_x_1/a", 8),
+                    ("conv4_x_2/b", 32), ("conv5_x_2/b", 4),
+                    ("conv4_x_2/b", 128)]
+
+
+def dead_channel_bias(bias):
+    """The bias with whole channel blocks driven far below zero (every
+    other 64-channel tile, every third group of 8), so the ReLU zeroes
+    whole groups beside partly zero ones: every all-zero-cell branch of
+    the epilogue has work."""
+    n = torch.arange(bias.numel(), device=bias.device)
+    dead = ((n // 64) % 2 == 1) | ((n // 8) % 3 == 0)
+    return torch.where(dead, torch.full_like(bias, -1e6), bias)
+
+
+def check_conv_zero_counts(kind, c, g):
+    """One conv kernel's ``profile_g`` zero counts at one shape: every
+    key of the dict equal to the plain version's; y, amax and acc the
+    same with profiling on and off.  Times the call both ways, and the
+    zeroing and dict ops the profiled call adds around the kernel."""
+    from repro_torch.kernels import conv_implicit, conv_sparse
+    if kind == "conv_implicit":
+        kern, plain = (conv_implicit.conv2d_implicit,
+                       conv_implicit.conv2d_implicit_plain)
+        wts = (c["w_sp"],)
+    else:
+        kern, plain = (conv_sparse.conv2d_sparse,
+                       conv_sparse.conv2d_sparse_plain)
+        wts = (c["bitmap"], c["values"])
+    args = (c["x"], *wts, c["eff"], dead_channel_bias(c["bias"]),
+            c["shortcut"])
+    kw = dict(k=c["k"], stride=c["stride"], relu=c["relu"])
+    *on, zc = kern(*args, profile_g=g, return_acc=True, **kw)
+    off = kern(*args, return_acc=True, **kw)
+    *ref, zc_p = plain(*args, profile_g=g, return_acc=True, **kw)
+    torch.cuda.synchronize()
+    label = f"{kind} {c['name']} g={g}"
+    check(all(torch.equal(a, b) for a, b in zip(on, off)),
+          f"{label}: y, amax or acc change with profiling")
+    check(all(torch.equal(a, b) for a, b in zip(on, ref)),
+          f"{label}: outputs differ from the plain version")
+    check(zc.keys() == zc_p.keys(), f"{label}: zero-count keys differ")
+    for key in zc_p:
+        check(torch.equal(zc[key], zc_p[key]),
+              f"{label}: zero count {key} differs from the plain version")
+    in_kernel = conv_implicit.counts_in_kernel(c["c_out"], g)
+    ms_off = median_ms(lambda: kern(*args, **kw))
+    ms_on = median_ms(lambda: kern(*args, profile_g=g, **kw))
+    N, G = c["N"], c["c_out"] // g
+    h = c["h_out"]
+
+    def around():               # what the wrapper adds around the kernel
+        zg, za = torch.zeros((2, N, G), dtype=torch.int32,
+                             device=c["x"].device)
+        return conv_implicit.zero_count_dict(zg, za, h, h, c["c_out"])
+    around_ms = median_ms(around) if in_kernel else None
+    p = conv_implicit.plan(N, h, h, c["c_in"], c["k"], c["c_out"],
+                           sparse=kind == "conv_sparse")
+    route = "epilogue" if in_kernel else "recount on y"
+    cells = float(zc["group_allzero"].sum())
+    print(f"[kernel] {kind:14s} zero counts {c['name']:12s} g={g:<3d} "
+          f"{route}: equal to the plain version (zeros "
+          f"{float(zc['row_zeros'].sum()):.0f}, all-zero cells {cells:.0f}; "
+          f"{h * h} rows an image, splits={p.splits}x"
+          f"{p.chunks_per}); y, amax, acc equal with profiling on and off; "
+          f"unprofiled {ms_off:.4f} ms, profiled {ms_on:.4f} ms "
+          f"(zeroing + dict {fmt(around_ms)} ms)", flush=True)
+    return dict(shape=c["name"], g=g, route=route, ms=ms_off,
+                profiled_ms=ms_on, around_ms=around_ms, all_zero_cells=cells)
 
 
 def floor_line(card):
@@ -889,20 +983,18 @@ def block_sparse_phase(dev, gen):
 # Phase 3: the served paths, full width, on the card
 # ---------------------------------------------------------------------------
 
-def profile_serve(eng, images, label):
-    """Where a served batch's time goes: one more run of ``eng`` under
-    ``torch.profiler``; prints wall time, the card's busy time (sum of
-    kernel times on the one stream) and the kernels that take most.
-    Returns (wall ms, busy ms, conv_mma_kernel ms, conv_dw_kernel ms) or
-    None when the profiler saw no kernels."""
+def profile_serve(run, label):
+    """Where a served batch's time goes: one more run (``run()``, which
+    reads every output back) under ``torch.profiler``; prints wall time,
+    the card's busy time (sum of kernel times on the one stream) and the
+    kernels that take most.  Returns (wall ms, busy ms, conv_mma_kernel
+    ms, conv_dw_kernel ms) or None when the profiler saw no kernels."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving.pipeline import PipelineRequest
-    reqs = [PipelineRequest(rid=i, images=im) for i, im in enumerate(images)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        eng.run(reqs)
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an aten op's own row repeats the time of
     # the kernels it launched
@@ -970,12 +1062,13 @@ def graph_launches(cfg, mode) -> dict:
 
 def serve(kernels, card):
     """Serve every (model, mode, stage count) of SERVED; returns
-    {(model, mode, n_stages): result}."""
+    ({(model, mode, n_stages): result}, {(model, mode): (config, compiled
+    tree, request 0's CPU plain logits)}, the requests' images)."""
     from repro_torch.core.compiled_linear import ensure_compiled
     from repro_torch.serving.pipeline import (PipelineEngine,
                                               PipelineRequest,
                                               reference_logits)
-    results = {}
+    results, trees = {}, {}
     rng = np.random.RandomState(0)
     images = [rng.randn(n, 224, 224, 3).astype(np.float32)
               for n in (1, 2, 3)]
@@ -1005,6 +1098,7 @@ def serve(kernels, card):
         print(f"[serve] {model}/{mode}: compile {t_compile:.1f}s, CPU plain "
               f"forward of request 0 {time.perf_counter() - t0:.1f}s",
               flush=True)
+        trees[(model, mode)] = (cfg, compiled, ref_cpu)
         by_stages = {}
         for n_stages in stage_counts:
             label = f"{model}/{mode}/{n_stages}"
@@ -1055,7 +1149,10 @@ def serve(kernels, card):
             res = dict(counts=counts, n_microbatches=n_mb,
                        im_s=n_img / dt, d_logit=d_logit)
             if n_stages == 1:
-                prof = profile_serve(eng, images, f"{model}/{mode}")
+                prof = profile_serve(
+                    lambda: eng.run([PipelineRequest(rid=i, images=im)
+                                     for i, im in enumerate(images)]),
+                    f"{model}/{mode}")
                 if prof is not None:
                     (res["profile_wall_ms"], res["device_busy_ms"],
                      res["conv_kernel_ms"], res["dw_kernel_ms"]) = prof
@@ -1063,7 +1160,258 @@ def serve(kernels, card):
         if len(by_stages) == 2:
             check(np.array_equal(by_stages[1], by_stages[2]),
                   f"{model}/{mode}: 1-stage and 2-stage logits differ")
-    return results
+    return results, trees, images
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the replicated front door (ResNetFrontend) on the card
+# ---------------------------------------------------------------------------
+
+FLEET_REQUESTS = 16          # per open-loop wave, 1-3 images each
+FLEET_MIX = ((1, 1.0), (2, 1.0), (3, 1.0))
+FLEET_LOAD = 0.7             # offered rows/s over the closed wave's
+FLEET_GROUPS = 8             # coarse_in group size of the profiled waves
+FLEET_MAX_WALL_S = 120.0
+
+
+def pool_rows(pool, images) -> int:
+    """The first pool row of a request's images (a ``poisson_plan``
+    request is a view of the pool)."""
+    off = images.__array_interface__["data"][0] - \
+        pool.__array_interface__["data"][0]
+    check(np.shares_memory(pool, images) and off % pool[0].nbytes == 0,
+          "a fleet request is not a slice of the image pool")
+    return off // pool[0].nbytes
+
+
+def check_fleet_logits(label, pool, ref, reqs):
+    """Every request done, its logits bit-identical to the single-engine
+    card forward of the same rows."""
+    for r in reqs:
+        a = pool_rows(pool, r.images)
+        check(r.done and r.logits is not None,
+              f"{label}: request {r.rid} incomplete")
+        check(np.array_equal(r.logits, ref[a:a + len(r.images)]),
+              f"{label}: request {r.rid}'s logits differ from the "
+              "single-engine card forward")
+
+
+def fleet_launches(kernels, fe, label, per_mb):
+    """Launch counts of a fleet wave (counters zeroed just before it)
+    against the graph's count per microbatch over every replica's
+    injected microbatches."""
+    n_mb = sum(eng.stats()["mb_injected"] for eng in fe.replicas)
+    counts = {name: kern.launches for name, kern in kernels.items()}
+    for name, got in counts.items():
+        want = per_mb.get(name, 0) * n_mb
+        check(got == want, f"{label}: {got} {name} launches for {n_mb} "
+              f"microbatches, want {want}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def zero_launches(kernels):
+    for kern in kernels.values():
+        kern.launches = 0
+
+
+def fleet_phase(kernels, card, trees, serve_images):
+    """Full-width ResNet50 behind the port's ``ResNetFrontend`` on the
+    card: 2 replicas x 1 stage, both on the one card, microbatch 2, the
+    serve phase's compiled trees.  (a) an open-loop ``poisson_plan`` wave
+    at ``FLEET_LOAD`` x the rows/s of a closed wave; (b) the same
+    requests as one burst with replica 1 killed at its step 2; (c) a
+    traced open-loop wave, its Chrome trace validated; (d) profiled
+    waves in ``int8`` and ``sparse_cfmm`` whose sparsity snapshot must
+    equal the CPU ``reference_profile`` of the same images.  Every
+    request's logits are held to the single-engine card forward of its
+    rows (which the serve phase holds to the CPU), bit for bit."""
+    from repro_torch.obs import Telemetry, validate_chrome_trace
+    from repro_torch.serving.faults import Fault, FaultInjector
+    from repro_torch.serving.frontend import FrontendRequest, ResNetFrontend
+    from repro_torch.serving.loadgen import (offered_rows_per_s,
+                                             poisson_plan, run_open_loop)
+    from repro_torch.serving.pipeline import (PipelineEngine,
+                                              reference_profile)
+    cfg, compiled, ref_cpu = trees[("resnet50", "int8")]
+    rng = np.random.RandomState(1)
+    # the serve phase's six images (request 0 first), then two more
+    pool = np.concatenate(list(serve_images) + [
+        rng.randn(2, *serve_images[0].shape[1:]).astype(np.float32)])
+    refs = {}
+    for mode in ("int8", "sparse_cfmm"):
+        eng = PipelineEngine(cfg, trees[("resnet50", mode)][1], mode=mode,
+                             n_stages=1, microbatch=2, device="cuda")
+        refs[mode] = eng.run_batch(pool)
+        check(np.array_equal(refs[mode][:1],
+                             trees[("resnet50", mode)][2]),
+              f"fleet {mode}: the card forward of request 0 differs from "
+              "the CPU plain forward")
+    ref = refs["int8"]
+    per_mb = PER_MICROBATCH[("resnet50", "int8")]
+
+    def make(mode="int8", telemetry=None):
+        return ResNetFrontend(cfg, trees[("resnet50", mode)][1], mode=mode,
+                              n_replicas=2, n_stages=1, microbatch=2,
+                              device="cuda", telemetry=telemetry)
+
+    def plan(rate, rid_base):
+        return poisson_plan(rate_rps=rate, n_requests=FLEET_REQUESTS,
+                            image_pool=pool, size_mix=FLEET_MIX, seed=0,
+                            rid_base=rid_base)
+
+    out = {}
+    fe = make()
+    check(fe.replicas[0].pipe.stages[0].device
+          == fe.replicas[1].pipe.stages[0].device,
+          "fleet: the two replicas are not on the one card")
+    warm = plan(1.0, 0)
+    fe.run([a.req for a in warm])                # warm-up
+    fe.reset_service_rate()
+    closed = [a.req for a in plan(1.0, 100)]
+    fe.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fe.run(closed)                               # reads every output back
+    dt = time.perf_counter() - t0
+    check_fleet_logits("fleet closed wave", pool, ref, closed)
+    rows = sum(len(r.images) for r in closed)
+    cap = rows / dt
+    st = fe.stats()
+    print(f"[fleet] resnet50/int8 2 replicas x 1 stage on one card, "
+          f"microbatch 2: closed wave of {len(closed)} requests, {rows} "
+          f"images in {dt * 1e3:.1f} ms = {cap:.1f} im/s; latency p50 "
+          f"{st['latency_p50_s'] * 1e3:.1f} ms p95 "
+          f"{st['latency_p95_s'] * 1e3:.1f} ms on {card}", flush=True)
+    out["closed"] = dict(requests=len(closed), rows=rows, wall_s=dt,
+                         im_s=cap, latency_p50_s=st["latency_p50_s"],
+                         latency_p95_s=st["latency_p95_s"])
+    # the closed wave once more, profiled
+    prof = profile_serve(lambda: fe.run([a.req for a in plan(1.0, 200)]),
+                         "fleet/resnet50/int8 2 replicas")
+    if prof is not None:
+        out["closed"].update(zip(("profile_wall_ms", "device_busy_ms",
+                                  "conv_kernel_ms"), prof))
+
+    # (a) open loop at FLEET_LOAD x the closed wave's rows/s
+    mean_rows = sum(n * w for n, w in FLEET_MIX) / sum(w for _, w in FLEET_MIX)
+    wave = plan(FLEET_LOAD * cap / mean_rows, 1000)
+    fe.reset_stats()
+    zero_launches(kernels)
+    res = run_open_loop(fe, wave, max_wall_s=FLEET_MAX_WALL_S)
+    counts = fleet_launches(kernels, fe, "fleet open loop", per_mb)
+    check(res["admitted"] == FLEET_REQUESTS and res["rejected"] == 0,
+          f"fleet open loop: {res['rejected']} requests shed without an SLO")
+    check_fleet_logits("fleet open loop", pool, ref, res["admitted_requests"])
+    st = fe.stats()
+    attr = [r["bubble_attribution"] for r in st["replicas"]]
+    print(f"[fleet] (a) open loop: {FLEET_REQUESTS} requests, "
+          f"{res['offered_rows']} images offered at "
+          f"{offered_rows_per_s(wave):.1f} im/s ({FLEET_LOAD} x the closed "
+          f"wave); latency p50 {res['latency_p50_s'] * 1e3:.1f} ms p95 "
+          f"{res['latency_p95_s'] * 1e3:.1f} ms; goodput "
+          f"{res['goodput_rows_s']:.1f} im/s; max queue depth "
+          f"{st['max_queue_depth']}; rows per replica "
+          f"{st['rows_dispatched']}; shed {res['rejected']}; bubble "
+          f"{st['replica_bubble']}, attribution {attr}; launches {counts}; "
+          f"logits bit-identical to the single-engine card forward",
+          flush=True)
+    out["open_loop"] = dict(
+        offered_im_s=offered_rows_per_s(wave), rows=res["offered_rows"],
+        latency_p50_s=res["latency_p50_s"],
+        latency_p95_s=res["latency_p95_s"],
+        goodput_im_s=res["goodput_rows_s"], wall_s=res["wall_s"],
+        max_queue_depth=st["max_queue_depth"],
+        rows_per_replica=st["rows_dispatched"], shed=res["rejected"],
+        bubble=st["replica_bubble"], bubble_attribution=attr,
+        launches=counts)
+
+    # (b) the same requests as one burst, replica 1 killed at its step 2
+    inj = FaultInjector()
+    inj.arm(fe.replicas[1], Fault("kill", at_step=2))
+    burst = [a.req for a in plan(1.0, 2000)]
+    fe.reset_stats()
+    zero_launches(kernels)
+    fe.run(burst)
+    counts = fleet_launches(kernels, fe, "fleet killed replica", per_mb)
+    check_fleet_logits("fleet killed replica", pool, ref, burst)
+    st = fe.stats()
+    check(st["replicas_failed"] == 1 and st["failed"] == [False, True]
+          and st["rows_requeued"] >= 1,
+          f"fleet killed replica: failed {st['failed']}, requeued "
+          f"{st['rows_requeued']} rows")
+    print(f"[fleet] (b) replica 1 killed at its step 2: {len(burst)} "
+          f"requests completed, {st['rows_requeued']} rows requeued over "
+          f"{st['requeues']} spans, rows per replica "
+          f"{st['rows_dispatched']}; latency p50 "
+          f"{st['latency_p50_s'] * 1e3:.1f} ms p95 "
+          f"{st['latency_p95_s'] * 1e3:.1f} ms; launches {counts}; logits "
+          "bit-identical", flush=True)
+    out["killed"] = dict(rows_requeued=st["rows_requeued"],
+                         requeues=st["requeues"],
+                         rows_per_replica=st["rows_dispatched"],
+                         latency_p50_s=st["latency_p50_s"],
+                         latency_p95_s=st["latency_p95_s"], launches=counts)
+    inj.disarm(fe.replicas[1])
+    del fe
+
+    # (c) a traced open-loop wave
+    tel = Telemetry(trace=True)
+    fe = make(telemetry=tel)
+    fe.run([a.req for a in plan(1.0, 3000)])     # warm-up
+    traced = plan(FLEET_LOAD * cap / mean_rows, 4000)
+    fe.reset_stats()
+    zero_launches(kernels)
+    res = run_open_loop(fe, traced, max_wall_s=FLEET_MAX_WALL_S)
+    counts = fleet_launches(kernels, fe, "fleet traced wave", per_mb)
+    check_fleet_logits("fleet traced wave", pool, ref,
+                       res["admitted_requests"])
+    errs = validate_chrome_trace(tel.trace.to_chrome_trace())
+    check(not errs, f"fleet traced wave: invalid Chrome trace: {errs[:5]}")
+    spans = collections.Counter(sp.name for sp in tel.trace.spans)
+    instants = collections.Counter(i.name for i in tel.trace.instants)
+    print(f"[fleet] (c) traced open loop: valid Chrome trace, spans "
+          f"{dict(sorted(spans.items()))}, instants "
+          f"{dict(sorted(instants.items()))}, dropped {tel.trace.dropped}; "
+          f"latency p50 {res['latency_p50_s'] * 1e3:.1f} ms p95 "
+          f"{res['latency_p95_s'] * 1e3:.1f} ms; logits bit-identical",
+          flush=True)
+    out["traced"] = dict(spans=dict(spans), instants=dict(instants),
+                         latency_p50_s=res["latency_p50_s"],
+                         latency_p95_s=res["latency_p95_s"], launches=counts)
+    del fe
+
+    # (d) profiled waves: the epilogues' zero counts against the CPU
+    for mode in ("int8", "sparse_cfmm"):
+        tel = Telemetry(sparsity_groups=FLEET_GROUPS)
+        fe = make(mode, telemetry=tel)
+        req = FrontendRequest(rid=0, images=pool[:2])
+        zero_launches(kernels)
+        fe.run([req])
+        counts = fleet_launches(kernels, fe, f"fleet profiled {mode}",
+                                PER_MICROBATCH[("resnet50", mode)])
+        check_fleet_logits(f"fleet profiled {mode}", pool, refs[mode], [req])
+        snap = tel.sparsity.snapshot()
+        t0 = time.perf_counter()
+        _, oracle = reference_profile(trees[("resnet50", mode)][1], cfg,
+                                      pool[:2], 2, FLEET_GROUPS)
+        check(snap == oracle, f"fleet profiled {mode}: the sparsity "
+              "snapshot differs from the CPU reference_profile")
+        worst = max(snap["layers"].items(),
+                    key=lambda kv: kv[1]["zero_fraction"])
+        print(f"[fleet] (d) profiled {mode}, groups of {FLEET_GROUPS}, 2 "
+              f"images: snapshot equal to the CPU reference_profile "
+              f"({time.perf_counter() - t0:.1f}s); {len(snap['layers'])} "
+              f"layers, overall zero fraction "
+              f"{snap['overall_zero_fraction']:.4f}, most zero "
+              f"{worst[0]} {worst[1]['zero_fraction']:.4f}; launches "
+              f"{counts}; logits equal to the unprofiled forward",
+              flush=True)
+        out[f"profiled_{mode}"] = dict(
+            layers=len(snap["layers"]),
+            overall_zero_fraction=snap["overall_zero_fraction"],
+            launches=counts)
+        del fe
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1454,10 +1802,21 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     rows = {"conv_implicit": [], "conv_sparse": []}
+    cases = {}
     for spec in CONV_SHAPES:
-        c = conv_case(spec, dev, gen)
+        c = cases[spec[0]] = conv_case(spec, dev, gen)
         for kind in ("conv_implicit", "conv_sparse"):
             rows[kind].append(check_conv_kernel(kind, c))
+    zero_rows = {kind: [check_conv_zero_counts(kind, cases[name], g)
+                        for name, g in CONV_ZERO_COUNTS]
+                 for kind in ("conv_implicit", "conv_sparse")}
+    for kind, zr in zero_rows.items():
+        epi = [r for r in zr if r["route"] == "epilogue"]
+        print(f"[kernel] {kind} zero counts over {len(epi)} epilogue "
+              f"cases: unprofiled {sum(r['ms'] for r in epi):.4f} ms, "
+              f"profiled {sum(r['profiled_ms'] for r in epi):.4f} ms, of "
+              f"which zeroing + dict "
+              f"{sum(r['around_ms'] for r in epi):.4f} ms", flush=True)
     rows["sparse_matvec"] = [check_sparse_matvec(*sh, dev, gen)
                              for sh in SPARSE_SHAPES]
     rows["flash_attention"] = [check_flash(sp, dt, dev, gen)
@@ -1480,8 +1839,11 @@ def main() -> int:
     print(f"[time] block-sparse phase done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
-    served = serve(kernels, card)
+    served, trees, serve_images = serve(kernels, card)
     print(f"[time] CNN serve phase done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    fleet = fleet_phase(kernels, card, trees, serve_images)
+    print(f"[time] fleet phase done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
     lm_served = serve_lm(kernels, card)
 
@@ -1514,8 +1876,21 @@ def main() -> int:
         by_path.update({path: v["counts"][name]
                         for path, v in lm_served.items()
                         if v["counts"][name]})
+        by_path.update({f"fleet/resnet50/{wave}": v["launches"][name]
+                        for wave, v in fleet.items()
+                        if v.get("launches", {}).get(name)})
         status = (f"built, launched on the served paths, equal to its "
                   f"plain version at {len(shape_rows)} shape(s)")
+        zr = zero_rows.get(name)
+        if zr:
+            epi = [r for r in zr if r["route"] == "epilogue"]
+            status += (f"; its profile_g zero counts equal to the plain "
+                       f"version's dict at {len(zr)} case(s), {len(epi)} "
+                       f"counted in the epilogue (g "
+                       f"{sorted({r['g'] for r in epi})}) and "
+                       f"{len(zr) - len(epi)} recounted on y, with y, amax "
+                       f"and acc the same with profiling on and off; the "
+                       f"profiled fleet waves ran them")
         if name == "block_sparse":
             by_path.update(bs_paths)
             status = (f"built, launched by the block-sparse phase (no served "
@@ -1540,10 +1915,13 @@ def main() -> int:
             "launches_by_path": by_path,
             "status": status,
             "shapes": shape_rows,
+            **({"zero_counts": zero_rows[name]} if name in zero_rows
+               else {}),
         })
     serve_line = [{"path": f"{m}/{mode}", "n_stages": n, **v}
                   for (m, mode, n), v in served.items()]
     print(json.dumps({"serve": serve_line, "floor": floor}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"lm_serve": lm_served}), flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"[card] {card}", flush=True)

@@ -164,28 +164,32 @@ def apply_linear(w: dict, x: torch.Tensor,
 
 def apply_conv(w: dict, x_q: torch.Tensor, x_scale, *, gamma=None,
                beta=None, shortcut=None, relu: bool = True,
-               quant_out: bool = False):
+               quant_out: bool = False, zero_count: int | None = None):
     """Fused conv forward for a compiled conv leaf (carries its geometry).
 
     Dispatch rides the leaf: depthwise leaves go to the depthwise
     kernel; ``bitmap`` leaves hand the packed pair to the bitmap-native
     sparse conv kernel; ``values``/``codes``/``bs_codes`` leaves feed the
     dense implicit-GEMM kernel.  Returns f32 NHWC, or (int8, scale) with
-    quant_out (see kernels.ops.conv2d).
+    quant_out (see kernels.ops.conv2d).  ``zero_count`` opts into
+    activation-sparsity profiling: the zero-count dict is appended to the
+    return, observation only.
     """
     geom = w["geom"]
     if geom.dw:
         return ops.conv2d_dw(x_q, w["values"], geom.k, geom.stride,
                              x_scale=x_scale, w_scale=w["scale"],
                              gamma=gamma, beta=beta, shortcut=shortcut,
-                             relu=relu, quant_out=quant_out)
+                             relu=relu, quant_out=quant_out,
+                             zero_count=zero_count)
     if "bitmap" in w:
         codes = (w["bitmap"], w["values"])
     else:
         codes = w.get("values", w.get("codes", w.get("bs_codes")))
     return ops.conv2d(x_q, codes, geom.k, geom.stride, x_scale=x_scale,
                       w_scale=w["scale"], gamma=gamma, beta=beta,
-                      shortcut=shortcut, relu=relu, quant_out=quant_out)
+                      shortcut=shortcut, relu=relu, quant_out=quant_out,
+                      zero_count=zero_count)
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,22 @@
 //     emptied into the shared counts every 8192 bitmap rows).  The keep_k
 //     clamp of the plain version is kept: a code past the column's keep_k
 //     values reads the last one.
+//   * Zero counts (PROFILE, a compile-time flag: the instance without it
+//     is the same code as without the feature; the profile_g output of
+//     src/repro/kernels/conv_implicit.py:85-138 and conv_sparse.py:49-84).
+//     Per coarse_in group of g output channels (g a power of two dividing
+//     BN and n_out): the zeros of y (``y == 0.f``, as floats) over each
+//     image's pixels, into zg, and the (pixel, group) cells whose whole
+//     group is zero, into za, both (N, n_out/g) int32 that the wrapper
+//     zeroes.  A thread's 8 channels of a row hold groups of g <= 8
+//     whole; g = 16 and 32 span 2 and 4 lanes of a quad (shuffles, as the
+//     row max); g = 64 spans the two wn warps, whose quads add the row's
+//     zeros in shared memory.  Under split K only a leader's own rows
+//     count.  A tile in one image sums its counts in registers, over the
+//     warp, then in shared memory, and adds one atomicAdd per group and
+//     block; a tile that crosses images counts each row into its image's
+//     slot in shared memory (past ZC_SLOTS images, straight into zg / za).
+//     Integer counts: exact in any order.  y is the same with or without.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -89,12 +105,21 @@ static_assert(THREADS == BN * BK / 32, "sparse: one thread per (column, "
 constexpr int MAX_SPLITS = 16;          // blocks of a cluster (non-portable)
 constexpr int STAGES = 4;               // ring depth (3 and 6: no faster)
 constexpr int PART_BYTES = 4 * 4 * THREADS * 8;  // split K: int2 partials
+constexpr int ZC_SLOTS = 4;             // images of a tile whose zero counts
+                                        // add up in shared memory
 
 struct Plan {
   int M;                    // N * h_out * w_out
   int splits, chunks_per;
   int bvec;                 // bytes per weight / bitmap copy: 16, 4 or 1
   int vec_epi;              // n_out % 8 == 0, epilogue operands aligned
+};
+
+// The profile_g zero counts (zg null: none).
+struct Profile {
+  int* zg;                  // (N, n_out/g) zeros per group, zero on entry
+  int* za;                  // (N, n_out/g) all-zero (pixel, group) cells
+  int g;                    // channels per group: a power of two <= BN
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -192,12 +217,16 @@ __device__ __forceinline__ uint32_t byte_popc(uint32_t x) {
   return (x + (x >> 4)) & 0x0f0f0f0fu;
 }
 
-template <bool SPARSE, int VEC>
+template <bool SPARSE, int VEC, bool PROFILE>
 __global__ void __launch_bounds__(THREADS)
-conv_mma_kernel(ConvArgs a, Plan p) {
+conv_mma_kernel(ConvArgs a, Plan p, Profile z) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ unsigned int rowmax_s[BM];
   __shared__ int base_s[BN];
+  // zero counts: per image slot and group of the tile; per row, for g = 64
+  __shared__ int zg_s[PROFILE ? ZC_SLOTS * BN : 1];
+  __shared__ int za_s[PROFILE ? ZC_SLOTS * BN : 1];
+  __shared__ int zrow_s[PROFILE ? BM : 1];
   // byte gather: per tile row, the offset of its first tap in x and its
   // top-left input position (far outside the image for a row past M)
   __shared__ long long row_off_s[VEC == 1 ? BM : 1];
@@ -229,6 +258,10 @@ conv_mma_kernel(ConvArgs a, Plan p) {
   }
   if (tid < BM) rowmax_s[tid] = 0u;
   if (SPARSE && tid < BN) base_s[tid] = 0;
+  if constexpr (PROFILE) {      // the ring's first barrier orders these
+    for (int i = tid; i < ZC_SLOTS * BN; i += THREADS) zg_s[i] = za_s[i] = 0;
+    if (tid < BM) zrow_s[tid] = 0;
+  }
 
   // ---- A loader ----------------------------------------------------------
   // VEC 16 / 4: thread owns output row tid / 2 and half (32 K rows) of each
@@ -651,6 +684,57 @@ conv_mma_kernel(ConvArgs a, Plan p) {
     load8(bv, a.eff_bias + nb);
     if (one_img) load8(sv, a.eff_scale + (size_t)img_lo * n_out + nb);
   }
+
+  // ---- zero counts (PROFILE): group u of the thread's 8 channels is the
+  // tile's group (32 wn + 8 c4 + u g) / g; g >= 8 gives one (u = 0)
+  int zcnt[8], acnt[8];         // one image: the thread's counts per u
+#pragma unroll
+  for (int u = 0; u < 8; ++u) zcnt[u] = acnt[u] = 0;
+  auto add_counts = [&](int u, int zc, int ac, int img) {
+    if (one_img) {
+      zcnt[u] += zc;
+      acnt[u] += ac;
+    } else if (zc) {            // no zeros, no all-zero cell
+      const int grp = (32 * wn + 8 * c4 + u * z.g) / z.g;
+      const int slot = img - img_lo;
+      if (slot < ZC_SLOTS) {
+        atomicAdd(&zg_s[slot * BN + grp], zc);
+        if (ac) atomicAdd(&za_s[slot * BN + grp], ac);
+      } else {
+        const size_t o = (size_t)img * (n_out / z.g) + n0 / z.g + grp;
+        atomicAdd(z.zg + o, zc);
+        if (ac) atomicAdd(z.za + o, ac);
+      }
+    }
+  };
+  // one row's zeros: bit e of zm is channel nb + e (0 past n_out and for
+  // rows that are not the thread's); every lane calls it (shuffles)
+  auto count_row = [&](unsigned zm, int r, int img) {
+    const int g = z.g;
+    if (g <= 8) {
+      const unsigned full = (1u << g) - 1u;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (u * g < 8) {
+          const unsigned bits = (zm >> (u * g)) & full;
+          add_counts(u, __popc(bits), bits == full, img);
+        }
+      }
+      return;
+    }
+    const int zc = __popc(zm);
+    int all = zm == 0xffu;      // n_out % g == 0: 8 channels valid or none
+    all &= __shfl_xor_sync(0xffffffffu, all, 1);
+    if (g >= 32) all &= __shfl_xor_sync(0xffffffffu, all, 2);
+    if (g == BN) {              // the other half is the other wn warp's
+      int q = zc + __shfl_xor_sync(0xffffffffu, zc, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      if (c4 == 0 && q) atomicAdd(&zrow_s[r], q);
+      all = 0;                  // counted from zrow_s below
+    }
+    add_counts(0, zc, all && (8 * c4) % g == 0, img);
+  };
+
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -658,8 +742,10 @@ conv_mma_kernel(ConvArgs a, Plan p) {
       const int r = 32 * wm + 16 * mt + 8 * hf + g4, m = m0 + r;
       const bool mine = (2 * mt + hf) % leaders == rank;
       float rmax = 0.f;
+      unsigned zm = 0u;         // PROFILE: the row's zeros of y
+      int img = img_lo;
       if (mine && m < p.M) {
-        const int img = one_img ? img_lo : m / m_img;
+        img = one_img ? img_lo : m / m_img;
         int v[8];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -692,6 +778,7 @@ conv_mma_kernel(ConvArgs a, Plan p) {
             y[e] = collect(v[e], sv[e], bv[e], sc_kind, scv[e], qv[e], q_scale,
                            a.relu);
             rmax = fmaxf(rmax, fabsf(y[e]));
+            if constexpr (PROFILE) zm |= (unsigned)(y[e] == 0.f) << e;
           }
           float4* yp = reinterpret_cast<float4*>(a.y + o);
           yp[0] = make_float4(y[0], y[1], y[2], y[3]);
@@ -710,6 +797,7 @@ conv_mma_kernel(ConvArgs a, Plan p) {
             a.y[o + e] = y;
             if (a.acc_out) a.acc_out[o + e] = v[e];
             rmax = fmaxf(rmax, fabsf(y));
+            if constexpr (PROFILE) zm |= (unsigned)(y == 0.f) << e;
           }
         }
       }
@@ -721,6 +809,43 @@ conv_mma_kernel(ConvArgs a, Plan p) {
         if (mine && c4 == 0 && m < p.M)
           atomicMax(&rowmax_s[r], __float_as_uint(rmax));
       }
+      if constexpr (PROFILE) count_row(zm, r, img);
+    }
+  }
+  if constexpr (PROFILE) {
+    const int g = z.g, G = n_out / g, per_tile = BN / g;
+    if (one_img) {              // the thread's counts over the warp's rows
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (u * g < 8 || u == 0) {
+#pragma unroll
+          for (int off = 4; off < 32; off *= 2) {
+            zcnt[u] += __shfl_xor_sync(0xffffffffu, zcnt[u], off);
+            acnt[u] += __shfl_xor_sync(0xffffffffu, acnt[u], off);
+          }
+          const int grp = (32 * wn + 8 * c4 + u * g) / g;
+          if (g4 == 0 && zcnt[u]) atomicAdd(&zg_s[grp], zcnt[u]);
+          if (g4 == 0 && acnt[u]) atomicAdd(&za_s[grp], acnt[u]);
+        }
+      }
+    }
+    __syncthreads();            // zrow_s, zg_s and za_s are complete
+    if (g == BN) {              // a row's one group: all zero at BN zeros
+      if (tid < BM && zrow_s[tid] == BN) {
+        const int img = (m0 + tid) / m_img, slot = img - img_lo;
+        if (slot < ZC_SLOTS) atomicAdd(&za_s[slot * BN], 1);
+        else atomicAdd(z.za + (size_t)img * G + n0 / g, 1);
+      }
+      __syncthreads();
+    }
+    const int img_hi = (min(m0 + BM, p.M) - 1) / m_img;
+    const int slots = min(ZC_SLOTS, img_hi - img_lo + 1);
+    for (int i = tid; i < slots * per_tile; i += THREADS) {
+      const int s = i / per_tile, j = i - s * per_tile, grp = n0 / g + j;
+      const int zc = zg_s[s * BN + j], ac = za_s[s * BN + j];
+      const size_t o = (size_t)(img_lo + s) * G + grp;
+      if (grp < G && zc) atomicAdd(z.zg + o, zc);
+      if (grp < G && ac) atomicAdd(z.za + o, ac);
     }
   }
   if (one_img) {                // the tile lies in one image
@@ -747,21 +872,25 @@ conv_mma_kernel(ConvArgs a, Plan p) {
 }
 
 template <bool SPARSE, int VEC>
-int launch_vec(const ConvArgs& a, const Plan& p, dim3 grid,
+int launch_vec(const ConvArgs& a, const Plan& p, const Profile& z, dim3 grid,
                cudaStream_t stream) {
   constexpr int STAGE = A_BYTES + (SPARSE ? BMP_BYTES : BD_BYTES);
   constexpr int SMEM = STAGES * STAGE + (SPARSE ? 2 * BS_WORDS * 4 : 0);
-  static_assert(SMEM + 2048 <= 48 * 1024, "dynamic + static shared memory "
+  static_assert(SMEM + 4096 <= 48 * 1024, "dynamic + static shared memory "
                 "under 48 KB: no opt-in attribute");
   static_assert(PART_BYTES <= SMEM, "split K: the partials reuse the ring");
-  return launch_split_z<conv_mma_kernel<SPARSE, VEC>>(
-      grid, THREADS, SMEM, stream, p.splits, a, p);
+  if (z.zg)
+    return launch_split_z<conv_mma_kernel<SPARSE, VEC, true>>(
+        grid, THREADS, SMEM, stream, p.splits, a, p, z);
+  return launch_split_z<conv_mma_kernel<SPARSE, VEC, false>>(
+      grid, THREADS, SMEM, stream, p.splits, a, p, z);
 }
 
-// Check the plan against the shape and launch; cudaErrorInvalidValue (1)
-// for a plan the kernel does not take.
+// Check the plan (and the zero counts' group) against the shape and
+// launch; cudaErrorInvalidValue (1) for a plan the kernel does not take.
 template <bool SPARSE>
-int launch(const ConvArgs& a, const Plan& p, int vec, cudaStream_t stream) {
+int launch(const ConvArgs& a, const Plan& p, const Profile& z, int vec,
+           cudaStream_t stream) {
   const int n_chunks = ((SPARSE ? a.Kb8 * 8 : a.K) + BK - 1) / BK;
   const int m_tiles = (p.M + BM - 1) / BM, n_tiles = (a.n_out + BN - 1) / BN;
   const int bvec_ok = p.bvec == 16 || p.bvec == 4 || p.bvec == 1;
@@ -771,13 +900,15 @@ int launch(const ConvArgs& a, const Plan& p, int vec, cudaStream_t stream) {
       (p.splits - 1) * p.chunks_per >= n_chunks ||
       p.splits * p.chunks_per < n_chunks || !bvec_ok || a.n_out % p.bvec ||
       (p.vec_epi && a.n_out % 8) || a.C % vec ||
-      (SPARSE && a.Kb8 * 8 < a.K))
+      (SPARSE && a.Kb8 * 8 < a.K) ||
+      (z.zg && (!z.za || z.g < 1 || z.g > BN || (z.g & (z.g - 1)) ||
+                a.n_out % z.g)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(m_tiles, n_tiles, p.splits);
   switch (vec) {
-    case 16: return launch_vec<SPARSE, 16>(a, p, grid, stream);
-    case 4: return launch_vec<SPARSE, 4>(a, p, grid, stream);
-    case 1: return launch_vec<SPARSE, 1>(a, p, grid, stream);
+    case 16: return launch_vec<SPARSE, 16>(a, p, z, grid, stream);
+    case 4: return launch_vec<SPARSE, 4>(a, p, z, grid, stream);
+    case 1: return launch_vec<SPARSE, 1>(a, p, z, grid, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

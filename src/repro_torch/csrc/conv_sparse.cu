@@ -2,17 +2,19 @@
 // int8 tensor cores (see conv_mma.cuh): the weights arrive as (bitmap,
 // values) and expand into shared memory one K chunk at a time.  Plain C
 // interface for ctypes; returns the cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue (1) for a plan the kernel does not take.
+// cudaErrorInvalidValue (1) for a plan the kernel does not take.  zg / za
+// (N, n_out/g) int32, zeroed, take the zero counts of y per group of g
+// channels; null: none.
 #include "conv_mma.cuh"
 
 extern "C" int conv_sparse_launch(
     const int8_t* x, const uint8_t* bitmap, const int8_t* values,
     const float* eff_scale, const float* eff_bias, const float* shortcut,
     const int8_t* sc_q, const float* sc_scale, float* y, float* amax,
-    int32_t* acc_out, int N, int H, int W, int C, int n_out, int k,
-    int stride, int pad_top, int pad_left, int h_out, int w_out, int Kb8,
-    int keep_k, int relu, int vec, int bvec, int vec_epi, int splits,
-    int chunks_per, void* stream) {
+    int32_t* acc_out, int* zg, int* za, int N, int H, int W, int C,
+    int n_out, int k, int stride, int pad_top, int pad_left, int h_out,
+    int w_out, int Kb8, int keep_k, int relu, int vec, int bvec,
+    int vec_epi, int splits, int chunks_per, int g, void* stream) {
   repro::ConvArgs a{};
   a.x = x; a.bitmap = bitmap; a.values = values; a.eff_scale = eff_scale;
   a.eff_bias = eff_bias; a.shortcut = shortcut; a.sc_q = sc_q;
@@ -24,6 +26,7 @@ extern "C" int conv_sparse_launch(
   a.keep_k = keep_k; a.relu = relu;
   repro::conv_mma::Plan p{N * h_out * w_out, splits, chunks_per, bvec,
                           vec_epi};
-  return repro::conv_mma::launch<true>(a, p, vec,
+  repro::conv_mma::Profile z{zg, za, g};
+  return repro::conv_mma::launch<true>(a, p, z, vec,
                                        static_cast<cudaStream_t>(stream));
 }

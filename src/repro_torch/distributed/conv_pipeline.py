@@ -21,8 +21,13 @@ processes a different image at once.  Here:
 Bubble accounting: M microbatches over S stages run ``M + S - 1`` ticks;
 every idle stage-tick is attributed to exactly one cause — ``fill``,
 ``starved``, ``drain`` or ``host`` — so the per-cause counts sum to
-``S*ticks - launches``.  Telemetry (trace spans, sparsity) belongs to a
-later port slice.
+``S*ticks - launches``.
+
+With a ``repro_torch.obs.Telemetry`` attached, each busy stage-tick
+records a span (pid ``1 + replica``, tid = stage) covering the host-side
+launch window, idle stage-ticks and edge moves become instant events,
+and profiled stage programs' zero-count dicts feed
+``telemetry.sparsity``.
 """
 from __future__ import annotations
 
@@ -76,8 +81,10 @@ class ConvPipeline:
     fill/steady/drain loop and consumes ``stats()``.
     """
 
-    def __init__(self, stages: list, metrics=None):
+    def __init__(self, stages: list, replica: int = 0, metrics=None,
+                 telemetry=None):
         self.stages = stages
+        self.replica = replica          # which fleet replica owns this chain
         self.n_stages = len(stages)
         self._inlet = [None] * self.n_stages    # per-stage input buffer
         self._tags = [None] * self.n_stages
@@ -99,6 +106,14 @@ class ConvPipeline:
         # host-dispatch-gap hint: rows a front door holds undispatched
         # (0 for a standalone engine)
         self.door_rows = 0
+        self.telemetry = telemetry
+        self._profiled = bool(telemetry is not None and telemetry.profiled)
+        tr = telemetry.trace if telemetry is not None else None
+        if tr is not None:
+            pid = 1 + replica
+            tr.name_process(pid, f"replica {replica}")
+            for s in range(self.n_stages):
+                tr.name_thread(pid, s, f"stage {s}")
 
     @property
     def ticks(self) -> int:
@@ -112,6 +127,16 @@ class ConvPipeline:
     def busy(self) -> bool:
         return any(b is not None for b in self._inlet)
 
+    @staticmethod
+    def _tag_args(tag) -> dict:
+        """Span args from an engine segment tag (best-effort: direct
+        ``ConvPipeline`` users may pass arbitrary tags)."""
+        try:
+            return {"rids": [req.rid for req, _, _ in tag],
+                    "rows": sum(n for _, _, n in tag)}
+        except (TypeError, ValueError, AttributeError):
+            return {}
+
     def tick(self, inject=None, tag=None) -> list:
         """One schedule step.  ``inject`` (optional) enters stage 0's
         inlet and is computed this tick; returns completed ``(tag, out)``
@@ -120,6 +145,9 @@ class ConvPipeline:
         over S stages complete in exactly M + S - 1 ticks."""
         done = []
         self._ticks.inc()
+        tel = self.telemetry
+        tr = tel.trace if tel is not None else None
+        pid = 1 + self.replica
         if inject is not None:
             assert self._inlet[0] is None, "stage 0 inlet busy"
             self._inlet[0] = nn.to_device(inject, self.stages[0].device)
@@ -138,6 +166,9 @@ class ConvPipeline:
             else:
                 cause = "starved" if self._seen[s] else "fill"
             self._idle[cause][s].inc()
+            if tr is not None:
+                tr.instant("idle", "pipeline", pid, s, cause=cause,
+                           tick=self._ticks.value)
         # reverse stage order: stage s launches on the microbatch its
         # inlet buffered, then frees the inlet for the predecessor's
         # output issued later in this same tick
@@ -147,12 +178,26 @@ class ConvPipeline:
             stage = self.stages[s]
             carry, t = self._inlet[s], self._tags[s]
             self._inlet[s] = None
+            t_begin = tr.now() if tr is not None else 0.0
             out = stage.fn(stage.params, carry)
+            if self._profiled:
+                out, aux = out
+                tel.sparsity.add(aux, count_microbatch=(s == 0))
+            if tr is not None:
+                # the span covers the host-side launch window (CUDA
+                # launches are asynchronous; a sync here would serialize
+                # the very overlap the pipe exists for)
+                tr.span(f"stage{s}", "pipeline", pid, s, t_begin,
+                        tr.now(), tick=self._ticks.value,
+                        **self._tag_args(t))
             if s + 1 < self.n_stages:
                 if self.edge_bytes[s] is None:
                     self.edge_bytes[s] = carry_bytes(out)
                 out = nn.to_device(out, self.stages[s + 1].device)
                 self._inlet[s + 1], self._tags[s + 1] = out, t
+                if tr is not None:
+                    tr.instant("edge", "pipeline", pid, s, edge=s,
+                               **self.edge_bytes[s])
             else:
                 self._mb_done.inc()
                 done.append((t, out))
@@ -166,10 +211,19 @@ class ConvPipeline:
     def inlet_free(self) -> bool:
         return self._inlet[0] is None
 
+    @property
+    def inlet_occupancy(self) -> tuple:
+        """Which stage inlets hold a buffered microbatch — a microbatch
+        advancing one stage flips two cells, so any healthy busy tick
+        changes this pattern.  Part of the progress marker the serving
+        front-end's per-replica watchdog compares."""
+        return tuple(b is not None for b in self._inlet)
+
     def cancel_in_flight(self) -> list:
         """Drop every buffered microbatch and return their tags (the
         per-row segment lists the engine injected) so the caller can
-        requeue the rows elsewhere.  Cancelled microbatches never reach
+        requeue the rows elsewhere — the drain half of replica failure
+        recovery.  Cancelled microbatches never reach
         ``microbatches_done``; the chain is idle afterwards."""
         tags = []
         for s in range(self.n_stages):
@@ -203,6 +257,7 @@ class ConvPipeline:
         total = s * self.ticks
         launches = [c.value for c in self._launches]
         return {
+            "replica": self.replica,
             "n_stages": s,
             "in_flight": self.in_flight,
             "microbatches": m,

@@ -40,7 +40,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
-from repro_torch.kernels.conv_implicit import conv_outputs, plain_collector
+from repro_torch.kernels.conv_implicit import (conv_outputs, plain_collector,
+                                               zero_count_dict)
 
 KERNEL = CudaKernel("conv_depthwise", "conv_depthwise_launch",
                     (P,) * 12 + (I,) * 18 + (P,))
@@ -152,29 +153,13 @@ def plan(N: int, H: int, W: int, C: int, k: int, stride: int) -> DwPlan:
     return p
 
 
-def zero_count_dict(zg: torch.Tensor, za: torch.Tensor, h_out: int,
-                    w_out: int, C: int) -> dict:
-    """The kernel's per-(image, group) counts ``zg``, ``za`` (N, C/g) as
-    ``ref.zero_counts_ref``'s dict."""
-    N = zg.shape[0]
-    f32 = dict(dtype=torch.float32, device=zg.device)
-    return {"row_zeros": zg.sum(1).float(),
-            "group_zeros": zg.sum(0).float(),
-            "group_allzero": za.sum(0).float(),
-            "elems_per_row": torch.full((), h_out * w_out * C, **f32),
-            "cells": torch.full((), N * h_out * w_out, **f32)}
-
-
 def conv2d_dw_plain(x_q, w_tap, eff_scale, eff_bias, shortcut=None, *,
                     k: int, stride: int, relu: bool = True,
                     return_acc: bool = False, profile_g: int | None = None):
     """Plain PyTorch version of the kernel, on any device."""
     acc = ref.conv2d_dw_int8_ref(x_q, w_tap, k, stride)
-    out = plain_collector(acc, eff_scale, eff_bias, shortcut, relu,
-                          return_acc)
-    if profile_g is not None:
-        out = out + (ref.zero_counts_ref(out[0], profile_g),)
-    return out
+    return plain_collector(acc, eff_scale, eff_bias, shortcut, relu,
+                           return_acc, profile_g)
 
 
 def dw_launch(x_q, w_tap, eff_scale, eff_bias, shortcut, *, k: int,
@@ -201,10 +186,9 @@ def dw_launch(x_q, w_tap, eff_scale, eff_bias, shortcut, *, k: int,
     in_kernel = (profile_g is not None and C % profile_g == 0
                  and dplan.cb % profile_g == 0)
     zg = za = None
-    if in_kernel:
-        zg = torch.zeros((N, C // profile_g), dtype=torch.int32,
-                         device=x_q.device)
-        za = torch.zeros_like(zg)
+    if in_kernel:               # one zeroing launch for both counts
+        zg, za = torch.zeros((2, N, C // profile_g), dtype=torch.int32,
+                             device=x_q.device)
     KERNEL.launch(ptr(x_q), ptr(w_tap), ptr(eff_scale), ptr(eff_bias), *sc,
                   ptr(y), ptr(amax), ptr(acc), ptr(zg), ptr(za), N, H, W, C,
                   k, stride, pad_top, pad_left, h_out, w_out, int(relu),

@@ -19,6 +19,16 @@ int32 partial sums (exact in any order) in distributed shared memory
 and runs the Collector.  Unlike the TPU kernel it writes ``y`` in plain
 NHWC (no strip blocking).
 
+With ``profile_g`` (the coarse_in group size of the sparsity profiler)
+the call also returns the dict of ``ref.zero_counts_ref`` — the TPU
+kernel's ``profile_g`` output (conv_implicit.py:85-138 of the JAX
+package): counted in the kernel's epilogue, under a compile-time flag,
+where g is a power of two dividing the 64-channel tile and n_out
+(``counts_in_kernel``); otherwise recounted by ``ref.zero_counts_ref``
+on ``y``, as the JAX package's ``ops.conv2d`` does when its channel
+tiles misalign the groups (``profile_fast`` false).  ``y`` is the same
+either way.
+
 What bounds it on an H100: the larger of its int8 operations over the
 1,979 TOP/s tensor-core peak and its bytes (int8 input and weights, f32
 output and shortcut, each moved once) over 3.35 TB/s — bytes at every
@@ -38,7 +48,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel("conv_implicit", "conv_implicit_launch",
-                    (P,) * 10 + (I,) * 17 + (P,))
+                    (P,) * 12 + (I,) * 18 + (P,))
 SMS = 132            # streaming multiprocessors of an H100 SXM
 BLOCK_M = 64         # output pixels per tile (rows may span images)
 BLOCK_N = 64         # output channels per tile
@@ -93,6 +103,27 @@ def plan(N: int, h_out: int, w_out: int, C: int, k: int, n_out: int,
                     -(-n_chunks // per), per)
 
 
+def counts_in_kernel(n_out: int, g: int) -> bool:
+    """Whether the conv kernels count ``profile_g`` zeros in their
+    epilogue: g a power of two that divides the 64-channel tile (so a
+    group never spans two tiles) and n_out (so no group is ragged)."""
+    return 1 <= g <= BLOCK_N and g & (g - 1) == 0 and n_out % g == 0
+
+
+def zero_count_dict(zg: torch.Tensor, za: torch.Tensor, h_out: int,
+                    w_out: int, C: int) -> dict:
+    """A kernel's per-(image, group) counts ``zg``, ``za`` (N, C/g) as
+    ``ref.zero_counts_ref``'s dict (shared by the conv kernels and the
+    depthwise kernel)."""
+    N = zg.shape[0]
+    f32 = dict(dtype=torch.float32, device=zg.device)
+    return {"row_zeros": zg.sum(1).float(),
+            "group_zeros": zg.sum(0).float(),
+            "group_allzero": za.sum(0).float(),
+            "elems_per_row": torch.full((), h_out * w_out * C, **f32),
+            "cells": torch.full((), N * h_out * w_out, **f32)}
+
+
 def conv_geometry(x_q: torch.Tensor, k: int, stride: int) -> tuple:
     """(pad_top, pad_left, h_out, w_out) of a SAME conv on NHWC ``x_q``."""
     _, H, W, _ = x_q.shape
@@ -101,14 +132,19 @@ def conv_geometry(x_q: torch.Tensor, k: int, stride: int) -> tuple:
     return lo_h, lo_w, h_out, w_out
 
 
-def plain_collector(acc, eff_scale, eff_bias, shortcut, relu, return_acc):
-    """The plain Collector shared by both conv wrappers: ``(y, amax)``
-    with per-image ``amax = max|y|`` (``+ (acc,)`` on request)."""
+def plain_collector(acc, eff_scale, eff_bias, shortcut, relu, return_acc,
+                    profile_g=None):
+    """The plain Collector shared by the conv wrappers: ``(y, amax)``
+    with per-image ``amax = max|y|`` (``+ (acc,)`` on request, then
+    ``ref.zero_counts_ref``'s dict with ``profile_g``)."""
     N, n_out = eff_scale.shape
     y = ref._collector(acc, eff_scale.reshape(N, 1, 1, n_out), eff_bias,
                        shortcut, relu)
     amax = torch.amax(torch.abs(y), dim=(1, 2, 3))
-    return (y, amax, acc) if return_acc else (y, amax)
+    out = (y, amax, acc) if return_acc else (y, amax)
+    if profile_g is not None:
+        out = out + (ref.zero_counts_ref(y, profile_g),)
+    return out
 
 
 def conv_outputs(x_q, eff_scale, eff_bias, shortcut, k, stride, n_out,
@@ -144,13 +180,15 @@ def conv_outputs(x_q, eff_scale, eff_bias, shortcut, k, stride, n_out,
 def conv_launch(kernel: CudaKernel, x_q, weights: tuple, eff_scale,
                 eff_bias, shortcut, *, k: int, stride: int, n_out: int,
                 relu: bool, return_acc: bool, cplan: ConvPlan,
-                sparse_ints: tuple = ()):
+                sparse_ints: tuple = (), profile_g: int | None = None):
     """Launch a conv kernel of ``csrc/conv_mma.cuh`` by ``cplan``:
     ``weights`` are the weight-side tensors in the C entry point's order
     (dense ``(w_sp,)``, sparse ``(bitmap, values)``; the first one is
     read ``cplan.bvec`` bytes at a time), ``sparse_ints`` the sparse
     entry point's ``(Kb8, keep_k)``.  A tensor that does not start on the
-    copy width is copied first."""
+    copy width is copied first.  With ``profile_g`` the zero counts come
+    from the epilogue where ``counts_in_kernel``, else from
+    ``ref.zero_counts_ref`` on ``y``."""
     if x_q.data_ptr() % cplan.vec:
         x_q = x_q.clone()
     if weights[0].data_ptr() % cplan.bvec:
@@ -163,27 +201,39 @@ def conv_launch(kernel: CudaKernel, x_q, weights: tuple, eff_scale,
     vec_epi = n_out % 8 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (eff_scale, eff_bias, *sc_t)
         if t is not None)
+    in_kernel = profile_g is not None and counts_in_kernel(n_out, profile_g)
+    zg = za = None
+    if in_kernel:               # one zeroing launch for both counts
+        zg, za = torch.zeros((2, x_q.shape[0], n_out // profile_g),
+                             dtype=torch.int32, device=x_q.device)
     kernel.launch(ptr(x_q), *map(ptr, weights), ptr(eff_scale),
-                  ptr(eff_bias), *sc, ptr(y), ptr(amax), ptr(acc), *geom,
-                  *sparse_ints, int(relu), cplan.vec, cplan.bvec,
-                  int(vec_epi), cplan.splits, cplan.chunks_per)
-    return (y, amax, acc) if return_acc else (y, amax)
+                  ptr(eff_bias), *sc, ptr(y), ptr(amax), ptr(acc), ptr(zg),
+                  ptr(za), *geom, *sparse_ints, int(relu), cplan.vec,
+                  cplan.bvec, int(vec_epi), cplan.splits, cplan.chunks_per,
+                  profile_g if in_kernel else 0)
+    out = (y, amax, acc) if return_acc else (y, amax)
+    if profile_g is not None:
+        *_, h_out, w_out = geom
+        out = out + (zero_count_dict(zg, za, h_out, w_out, n_out)
+                     if in_kernel else ref.zero_counts_ref(y, profile_g),)
+    return out
 
 
 def conv2d_implicit_plain(x_q, w_sp, eff_scale, eff_bias, shortcut=None, *,
                           k: int, stride: int, relu: bool = True,
-                          return_acc: bool = False):
+                          return_acc: bool = False,
+                          profile_g: int | None = None):
     """Plain PyTorch version of the kernel, on any device."""
     acc = ref.conv2d_int8_ref(x_q, w_sp, k, stride)
     return plain_collector(acc, eff_scale, eff_bias, shortcut, relu,
-                           return_acc)
+                           return_acc, profile_g)
 
 
 def conv2d_implicit(x_q: torch.Tensor, w_sp: torch.Tensor,
                     eff_scale: torch.Tensor, eff_bias: torch.Tensor,
                     shortcut: torch.Tensor | None = None, *, k: int,
                     stride: int, relu: bool = True,
-                    return_acc: bool = False):
+                    return_acc: bool = False, profile_g: int | None = None):
     """Fused implicit-GEMM SAME conv + Collector.
 
     x_q:       (N, H, W, C) int8 NHWC, unpadded
@@ -192,13 +242,19 @@ def conv2d_implicit(x_q: torch.Tensor, w_sp: torch.Tensor,
     eff_bias:  (n_out,) f32
     shortcut:  optional (N, h_out, w_out, n_out) f32 map, or an int8
                ``(codes, scale (N,))`` pair added as ``fmaf(q, scale, y)``
+    profile_g: optional coarse_in group size (n_out a multiple): also
+               return the zero counts of ``y``, ``ref.zero_counts_ref``'s
+               dict — from the kernel's epilogue where
+               ``counts_in_kernel``, else recounted on ``y``
     Returns (y (N, h_out, w_out, n_out) f32, amax (N,) f32 per-image
-    max|y|), plus the int32 accumulators with ``return_acc``.
+    max|y|), then the int32 accumulators with ``return_acc``, then the
+    dict with ``profile_g``.
     """
     if x_q.device.type == "cpu":
         return conv2d_implicit_plain(x_q, w_sp, eff_scale, eff_bias,
                                      shortcut, k=k, stride=stride,
-                                     relu=relu, return_acc=return_acc)
+                                     relu=relu, return_acc=return_acc,
+                                     profile_g=profile_g)
     N, _, _, C = x_q.shape
     n_out = w_sp.shape[1]
     check_cuda("w_sp", w_sp, torch.int8, (k * k * C, n_out))
@@ -206,4 +262,5 @@ def conv2d_implicit(x_q: torch.Tensor, w_sp: torch.Tensor,
     return conv_launch(KERNEL, x_q, (w_sp,), eff_scale, eff_bias, shortcut,
                        k=k, stride=stride, n_out=n_out, relu=relu,
                        return_acc=return_acc,
-                       cplan=plan(N, h_out, w_out, C, k, n_out))
+                       cplan=plan(N, h_out, w_out, C, k, n_out),
+                       profile_g=profile_g)

@@ -24,6 +24,10 @@ weights need over the 1,979 TOP/s int8 peak and the bytes (int8 input,
 packed weights, f32 output and shortcut) over 3.35 TB/s — bytes at every
 served shape.  The tensor cores multiply the expanded zeros too.
 
+``profile_g`` returns the zero counts of ``y`` as ``conv_implicit``
+does (the same epilogue; the TPU kernel's output at conv_sparse.py:49-84
+of the JAX package).
+
 For a CPU tensor the wrapper runs the plain version (kernels/ref.py);
 for a CUDA tensor it launches the kernel or raises.
 """
@@ -37,23 +41,25 @@ from repro_torch.kernels.conv_implicit import (conv_geometry, conv_launch,
                                                plain_collector, plan)
 
 KERNEL = CudaKernel("conv_sparse", "conv_sparse_launch",
-                    (P,) * 11 + (I,) * 19 + (P,))
+                    (P,) * 13 + (I,) * 20 + (P,))
 
 
 def conv2d_sparse_plain(x_q, bitmap, values, eff_scale, eff_bias,
                         shortcut=None, *, k: int, stride: int,
-                        relu: bool = True, return_acc: bool = False):
+                        relu: bool = True, return_acc: bool = False,
+                        profile_g: int | None = None):
     """Plain PyTorch version of the kernel, on any device."""
     acc = ref.conv2d_sparse_int8_ref(x_q, bitmap, values, k, stride)
     return plain_collector(acc, eff_scale, eff_bias, shortcut, relu,
-                           return_acc)
+                           return_acc, profile_g)
 
 
 def conv2d_sparse(x_q: torch.Tensor, bitmap: torch.Tensor,
                   values: torch.Tensor, eff_scale: torch.Tensor,
                   eff_bias: torch.Tensor,
                   shortcut: torch.Tensor | None = None, *, k: int,
-                  stride: int, relu: bool = True, return_acc: bool = False):
+                  stride: int, relu: bool = True, return_acc: bool = False,
+                  profile_g: int | None = None):
     """Fused bitmap-native SAME conv + Collector.
 
     bitmap: (K_pad/8, n_out) uint8, spatial-major taps, K_pad = k*k*C
@@ -64,7 +70,8 @@ def conv2d_sparse(x_q: torch.Tensor, bitmap: torch.Tensor,
     if x_q.device.type == "cpu":
         return conv2d_sparse_plain(x_q, bitmap, values, eff_scale, eff_bias,
                                    shortcut, k=k, stride=stride, relu=relu,
-                                   return_acc=return_acc)
+                                   return_acc=return_acc,
+                                   profile_g=profile_g)
     N, _, _, C = x_q.shape
     kb8, n_out = bitmap.shape
     keep_k = values.shape[0]
@@ -80,4 +87,4 @@ def conv2d_sparse(x_q: torch.Tensor, bitmap: torch.Tensor,
                        shortcut, k=k, stride=stride, n_out=n_out, relu=relu,
                        return_acc=return_acc,
                        cplan=plan(N, h_out, w_out, C, k, n_out, sparse=True),
-                       sparse_ints=(kb8, keep_k))
+                       sparse_ints=(kb8, keep_k), profile_g=profile_g)

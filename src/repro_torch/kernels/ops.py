@@ -103,7 +103,7 @@ def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,
            w_scale: torch.Tensor, gamma: torch.Tensor | None = None,
            beta: torch.Tensor | None = None,
            shortcut: torch.Tensor | None = None, relu: bool = True,
-           quant_out: bool = False):
+           quant_out: bool = False, zero_count: int | None = None):
     """Fused implicit-GEMM int8 SAME conv + Collector.
 
     x_q:     (N, H, W, c_in) int8 activations; x_scale their scale — a
@@ -122,6 +122,14 @@ def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,
                 epilogue as ``fma(codes, scale, y)``
     quant_out:  round the output back to int8 -> (y_q int8, y_scale);
                 otherwise returns f32 (N, h_out, w_out, c_out).
+    zero_count: opt-in activation-sparsity profiling — the coarse_in
+                group size to count zeros at.  Appends
+                ``ref.zero_counts_ref``'s dict to the return: ``(y, zc)``
+                or ``(y_q, y_scale, zc)``.  On the card the conv kernels
+                count in their epilogue where the group size divides their
+                64-channel tile and c_out, else the counts are recounted
+                on ``y`` (kernels/conv_implicit.py); ``y`` and ``y_q`` are
+                the same with it or without.
     """
     C = x_q.shape[3]
     packed = isinstance(codes, (tuple, list))
@@ -136,14 +144,14 @@ def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,
     eff_rows, eff_bias, sc, per_row = _collector_args(
         x_q, x_scale, w_scale, gamma, beta, shortcut, n_out)
     x_q = x_q.contiguous()
+    kw = dict(k=k, stride=stride, relu=relu, profile_g=zero_count)
     if packed:
-        y, amax_rows = conv2d_sparse(x_q, bitmap, values, eff_rows, eff_bias,
-                                     sc, k=k, stride=stride, relu=relu)
+        out = conv2d_sparse(x_q, bitmap, values, eff_rows, eff_bias, sc,
+                            **kw)
     else:
-        y, amax_rows = conv2d_implicit(x_q, codes.contiguous(), eff_rows,
-                                       eff_bias, sc, k=k, stride=stride,
-                                       relu=relu)
-    return _requant(y, amax_rows, per_row) if quant_out else y
+        out = conv2d_implicit(x_q, codes.contiguous(), eff_rows, eff_bias,
+                              sc, **kw)
+    return _tail(out, per_row, quant_out, zero_count)
 
 
 def conv2d_dw(x_q: torch.Tensor, values: torch.Tensor, k: int, stride: int,
@@ -170,11 +178,7 @@ def conv2d_dw(x_q: torch.Tensor, values: torch.Tensor, k: int, stride: int,
     out = _dw_kernel(x_q.contiguous(), values.contiguous(), eff_rows,
                      eff_bias, sc, k=k, stride=stride, relu=relu,
                      profile_g=zero_count)
-    y = out[0]
-    res = _requant(y, out[1], per_row) if quant_out else y
-    if zero_count is None:
-        return res
-    return (*res, out[2]) if quant_out else (y, out[2])
+    return _tail(out, per_row, quant_out, zero_count)
 
 
 def _collector_args(x_q, x_scale, w_scale, gamma, beta, shortcut,
@@ -200,6 +204,17 @@ def _collector_args(x_q, x_scale, w_scale, gamma, beta, shortcut,
     else:
         sc = None if shortcut is None else shortcut.float().contiguous()
     return eff_rows, eff_bias, sc, x_s.ndim >= 1
+
+
+def _tail(out: tuple, per_row: bool, quant_out: bool, zero_count):
+    """A conv op's return from its kernel's ``(y, amax[, zc])``: ``y`` or
+    the requantized ``(y_q, s_y)``, then the zero-count dict with
+    ``zero_count``."""
+    y = out[0]
+    res = _requant(y, out[1], per_row) if quant_out else y
+    if zero_count is None:
+        return res
+    return (*res, out[2]) if quant_out else (y, out[2])
 
 
 def _requant(y: torch.Tensor, amax_rows: torch.Tensor, per_row: bool):

@@ -1,5 +1,6 @@
-"""Device placement for the pipeline serving path (ports
-``pipeline_stage_devices`` of ``repro/launch/mesh.py``).
+"""Device placement for the pipeline serving path and the replicated
+front door (ports ``pipeline_stage_devices`` and
+``replica_pipeline_devices`` of ``repro/launch/mesh.py``).
 
 Entry points run on the card unless the caller asks for the CPU:
 ``resolve_device("cuda")`` raises when CUDA is absent instead of falling
@@ -37,3 +38,19 @@ def pipeline_stage_devices(n_stages: int, devices) -> list:
     serves any stage count."""
     devices = list(devices)
     return [devices[s % len(devices)] for s in range(n_stages)]
+
+
+def replica_pipeline_devices(n_replicas: int, n_stages: int,
+                             devices) -> list:
+    """Disjoint per-replica device groups for the replicated serving
+    front door (serving/frontend.py): ``n_replicas`` stage chains of
+    ``n_stages`` devices each, carved contiguously from ``devices`` —
+    replica ``r`` owns ``[r*n_stages, (r+1)*n_stages)`` where that many
+    devices exist.  With fewer devices the groups wrap round-robin, as
+    ``pipeline_stage_devices`` does: correctness does not depend on
+    placement, so every replica of a fleet may share one card (or the
+    CPU)."""
+    assert n_replicas >= 1 and n_stages >= 1, (n_replicas, n_stages)
+    devices = list(devices)
+    return [[devices[(r * n_stages + s) % len(devices)]
+             for s in range(n_stages)] for r in range(n_replicas)]

@@ -14,8 +14,9 @@ after a node whose value is a quantization-domain pair and the ONLY live
 value.  The trailing conv-free segment is the head unit (``block_id`` -1).
 
 Every op is ported; a ``dwconv`` node runs the depthwise kernel through
-``apply_conv`` (its leaf carries ``ConvGeom(dw=True)``).  Activation-
-sparsity profiling belongs to a later slice.
+``apply_conv`` (its leaf carries ``ConvGeom(dw=True)``).  With
+``sparsity_groups`` every ReLU-output conv also returns its activation
+zero counts (``compile_graph``), which obs/sparsity.py aggregates.
 """
 from __future__ import annotations
 
@@ -278,6 +279,10 @@ class Graph:
             out.append(specs)
         return out
 
+    def in_shape(self) -> tuple:
+        """Expected per-image input shape (H, W, C) at the front door."""
+        return (self.in_hw, self.in_hw, self.in_ch)
+
     def edge_bytes(self) -> list:
         """int8 bytes per image on each unit's outgoing cut edge (the
         8-bit inter-chip link), in unit order — what a ``StagePlan``
@@ -352,16 +357,22 @@ def _f32(v):
     return v.f32() if isinstance(v, Dequantized) else v
 
 
-def _unit_fn(nodes):
-    """Compile one unit segment into ``fn(params, carry) -> carry``.
+def _unit_fn(nodes, sparsity_groups=None):
+    """Compile one unit segment into ``fn(params, carry) -> carry`` (or
+    ``(carry, aux)`` when profiled).
 
     Nodes execute in the segment's (topological) order over a value
     environment; a reference to a name produced in an EARLIER unit
     resolves to the incoming carry — the cut rule guarantees exactly one
-    such value exists.
+    such value exists.  With ``sparsity_groups``, every ReLU-output conv
+    emits its zero-count dict under the node's name; carries are the
+    same bits either way.
     """
+    g = sparsity_groups
+    profiled = g is not None
+
     def fn(p, carry):
-        env = {}
+        env, aux = {}, {}
 
         def val(name):
             return env[name] if name in env else carry
@@ -380,9 +391,13 @@ def _unit_fn(nodes):
                 if isinstance(sc, Dequantized):
                     sc = (sc.q, sc.s)
                 w = p[n.name]
+                zc = g if (profiled and n.relu) else None
                 out = apply_conv(w["w"], q, s, gamma=w["scale"],
                                  beta=w["bias"], shortcut=sc, relu=n.relu,
-                                 quant_out=n.quant_out)
+                                 quant_out=n.quant_out, zero_count=zc)
+                if zc is not None:
+                    aux[n.name] = out[-1]
+                    out = out[0] if not n.quant_out else (out[0], out[1])
             elif n.op == "pool":
                 out = _max_pool_same(_f32(val(n.inputs[0])), n.k, n.stride)
             elif n.op == "head":
@@ -392,22 +407,26 @@ def _unit_fn(nodes):
                 out = apply_linear(p[n.name]["w"], _head_pool(q, s),
                                    per_row=True)
             env[n.name] = out
-        return out
+        return (out, aux) if profiled else out
 
     return fn
 
 
-def compile_graph(graph: Graph, params) -> list:
+def compile_graph(graph: Graph, params,
+                  sparsity_groups: int | None = None) -> list:
     """The compiled forward of a conv-DAG as an ordered ``PipelineUnit``
     list.  Each unit's ``params`` maps its nodes' names to their param
     subtrees (so a stage holds exactly its own constant weights), and
-    ``block_id`` is the unit's index into ``graph.blocks()`` (head -1)."""
+    ``block_id`` is the unit's index into ``graph.blocks()`` (head -1).
+    ``sparsity_groups`` opts every ReLU-output conv into activation-
+    sparsity profiling: unit fns then return ``(carry, {node: aux})``."""
     units = []
     segs = graph.units()
     for j, (uname, seg) in enumerate(segs):
         sub = {n.name: _subtree(params, n.path) for n in seg if n.path}
         bid = -1 if j == len(segs) - 1 else j
-        units.append(PipelineUnit(uname, bid, sub, _unit_fn(seg)))
+        units.append(PipelineUnit(uname, bid, sub,
+                                  _unit_fn(seg, sparsity_groups)))
     return units
 
 

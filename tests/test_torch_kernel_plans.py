@@ -20,6 +20,8 @@ tests' tolerance, the same bits on every replay).  Last, the ``int8``
 mode's linear goes through ``ops.cfmm_matmul`` and still equals the JAX
 package's ``apply_linear``.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -438,6 +440,119 @@ def test_conv_tiles_across_images_keep_per_image_amax(N, hw, sc_kind, relu):
                               conv_implicit.BLOCK_M)
     assert torch.equal(y, y_p)
     assert torch.equal(amax, amax_p)
+
+
+def _zero_count_replay(y, g, leaders=1):
+    """The conv epilogue's ``profile_g`` zero counts (csrc/conv_mma.cuh,
+    PROFILE) replayed by block, warp, lane and row: 64 x 64 tiles over
+    all N*h*w rows; under split K the ``leaders`` blocks each count the
+    row groups (m16 tile, half) that are theirs; a thread holds 8
+    consecutive channels of a row, groups of g <= 8 counted inside it,
+    g = 16 and 32 over 2 and 4 lanes of a quad (the all-zero test), g =
+    64 from the row's zeros summed over both column warps; each row
+    counts into its image's shared slot (past 4 images straight into
+    zg / za), then the slots add to zg / za.  (A tile in one image sums
+    in registers first: the same sums into slot 0.)"""
+    N, h, w, n_out = y.shape
+    M, m_img, G = N * h * w, h * w, n_out // g
+    Y = y.reshape(M, n_out).numpy()
+    zg = np.zeros((N, G), np.int64)
+    za = np.zeros((N, G), np.int64)
+    SLOTS, BM, BN = 4, 64, 64
+    for m0 in range(0, M, BM):
+        img_lo = m0 // m_img
+        img_hi = (min(m0 + BM, M) - 1) // m_img
+        for n0 in range(0, n_out, BN):
+            for rank in range(leaders):
+                zg_s = np.zeros((SLOTS, BN), np.int64)
+                za_s = np.zeros((SLOTS, BN), np.int64)
+                zrow = np.zeros(BM, np.int64)
+
+                def add(img, grp, zc, ac):
+                    if img - img_lo < SLOTS:
+                        zg_s[img - img_lo, grp] += zc
+                        za_s[img - img_lo, grp] += ac
+                    else:
+                        zg[img, n0 // g + grp] += zc
+                        za[img, n0 // g + grp] += ac
+                for wm, wn, mt, hf, g4 in itertools.product(
+                        range(2), range(2), range(2), range(2), range(8)):
+                    r = 32 * wm + 16 * mt + 8 * hf + g4
+                    m = m0 + r
+                    if (2 * mt + hf) % leaders != rank or m >= M:
+                        continue
+                    img = m // m_img
+                    zms = [[n0 + 32 * wn + 8 * c4 + e < n_out
+                            and Y[m, n0 + 32 * wn + 8 * c4 + e] == 0.0
+                            for e in range(8)] for c4 in range(4)]
+                    for c4, zm in enumerate(zms):
+                        base = 32 * wn + 8 * c4
+                        if g <= 8:
+                            for u in range(8 // g):
+                                bits = zm[u * g:(u + 1) * g]
+                                add(img, (base + u * g) // g, sum(bits),
+                                    int(all(bits)))
+                            continue
+                        span = min(g // 8, 4)        # lanes of the group
+                        quad = zms[c4 - c4 % span:c4 - c4 % span + span]
+                        whole = all(all(z) for z in quad)
+                        if g == BN and c4 == 0:
+                            zrow[r] += sum(sum(z) for z in zms)
+                        add(img, base // g, sum(zm),
+                            int(whole and g < BN and base % g == 0))
+                if g == BN:
+                    for r in np.nonzero(zrow == BN)[0]:
+                        add((m0 + r) // m_img, 0, 0, 1)
+                for sl in range(min(SLOTS, img_hi - img_lo + 1)):
+                    for j in range(BN // g):
+                        if n0 // g + j < G:
+                            zg[img_lo + sl, n0 // g + j] += zg_s[sl, j]
+                            za[img_lo + sl, n0 // g + j] += za_s[sl, j]
+    return torch.from_numpy(zg), torch.from_numpy(za)
+
+
+REPLAY_ZC_SHAPES = [
+    (3, 7, 128, 1),       # 49 rows an image: tiles cross images
+    (40, 2, 64, 1),       # 4 rows an image: past the 4 shared slots
+    (2, 9, 96, 3),        # split K's leaders, groups past n_out
+    (1, 12, 192, 4),      # one image per tile, four leaders
+]
+
+
+@pytest.mark.parametrize("g,N,hw,n_out,leaders", [
+    (g, *shape) for shape in REPLAY_ZC_SHAPES
+    for g in (1, 2, 4, 8, 16, 32, 64) if shape[2] % g == 0])
+def test_zero_count_replay_matches_plain(g, N, hw, n_out, leaders):
+    """The epilogue's partition of the zero counts over blocks, leaders,
+    lanes, groups and image slots adds up to ``ref.zero_counts_ref``'s
+    dict exactly, every key."""
+    gen = torch.Generator().manual_seed(N + g + n_out)
+    y = torch.clamp_min(torch.randn((N, hw, hw, n_out), generator=gen), 0)
+    n = torch.arange(n_out)
+    y[..., ((n // 64) % 2 == 1) | ((n // 8) % 3 == 0)] = 0.0
+    y[:, 0] = 0.0                      # whole zero rows: every g has cells
+    zc = conv_implicit.zero_count_dict(*_zero_count_replay(y, g, leaders),
+                                       hw, hw, n_out)
+    want = ref.zero_counts_ref(y, g)
+    for key in want:
+        assert torch.equal(zc[key], want[key]), key
+    assert float(want["group_allzero"].sum()) > 0
+
+
+@pytest.mark.parametrize("model", ["resnet50", "mobilenet_v2", "repvgg_a0"])
+def test_zero_counts_in_the_epilogue_at_served_shapes(model):
+    """At every served conv the profiler's groups of 8 (the fleet's)
+    are counted in the conv kernels' epilogue: n_out is a multiple of 8;
+    groups wider than the tile, not powers of two, or ragged are
+    recounted on y."""
+    for *_, n_out in _served_convs(model):
+        assert conv_implicit.counts_in_kernel(n_out, 8), n_out
+    assert not conv_implicit.counts_in_kernel(256, 128)
+    assert not conv_implicit.counts_in_kernel(96, 48)
+    assert not conv_implicit.counts_in_kernel(60, 8)
+    assert [g for g in range(1, 65)
+            if conv_implicit.counts_in_kernel(192, g)] == [1, 2, 4, 8, 16,
+                                                           32, 64]
 
 
 # ---------------------------------------------------------------------------

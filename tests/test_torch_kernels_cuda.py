@@ -16,7 +16,12 @@ byte copies of the input and of the weights, N = 1 and 3, output tiles
 across images and a ragged last tile, n_out off multiples of 8, K split
 over the grid at full-width ResNet50 7x7 and 14x14 shapes, the sparse
 split's popcount start past 8192 bitmap rows), and a split launch's
-CUDA-graph replay equal to the eager call; the depthwise kernel at
+CUDA-graph replay equal to the eager call; their ``profile_g`` zero
+counts equal to the plain version's dict at every group path of the
+epilogue (g 1-8 in a thread, 16 and 32 over lanes, 64 over warps), in
+tiles of one image, of several and of more than the shared slots hold,
+under split K, at ragged n_out, and recounted on y where the group does
+not fit the tile; the depthwise kernel at
 MobileNetV2's channel counts and ragged ones, at every branch of its
 plan (``conv_depthwise.plan``: copy width, channel slice, rows per band,
 column pad, threads), k = 5, odd maps, N = 1 and 3 and an unaligned
@@ -247,6 +252,137 @@ def test_conv_sparse_split_start_past_8192_bitmap_rows(dev):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _zero_bias(bias):
+    """A bias that zeroes whole blocks of channels after the ReLU (every
+    other 64-channel tile and every third group of 8), so every group
+    size has all-zero cells beside partly zero ones."""
+    n = torch.arange(bias.numel(), device=bias.device)
+    dead = ((n // 64) % 2 == 1) | ((n // 8) % 3 == 0)
+    return torch.where(dead, torch.full_like(bias, -1e6), bias)
+
+
+def _check_conv_zero_counts(case, k, stride, g, relu=True, variants=None):
+    """Both conv kernels' ``profile_g`` zero counts against the plain
+    version's dict, every key exact; acc, y and amax the same with
+    profiling on and off and equal to the plain version's.  With
+    ``variants``, also under those plans (``conv_launch``).  Returns
+    whether the epilogue counted."""
+    x, codes, bitmap, values, eff, bias, sc = case
+    N, _, _, C = x.shape
+    n_out = codes.shape[1]
+    _, _, h, w = conv_implicit.conv_geometry(x, k, stride)
+    kw = dict(k=k, stride=stride, relu=relu, return_acc=True)
+    for kern, plain, kernel, sparse in _conv_pairs():
+        wts = (bitmap, values) if sparse else (codes,)
+        *want, zc_p = plain(x, *wts, eff, bias, sc, profile_g=g, **kw)
+        p = conv_implicit.plan(N, h, w, C, k, n_out, sparse=sparse)
+        rows = k * k * C
+        n_chunks = -(-(-(-rows // 8) * 8 if sparse else rows) // 64)
+        for cp in [p, *(variants(p, n_chunks) if variants else ())]:
+            if cp is p:
+                *on, zc = kern(x, *wts, eff, bias, sc, profile_g=g, **kw)
+                off = kern(x, *wts, eff, bias, sc, **kw)
+            else:
+                *on, zc = _launch(kernel, x, wts, eff, bias, sc, cp,
+                                  profile_g=g, **kw)
+                off = _launch(kernel, x, wts, eff, bias, sc, cp, **kw)
+            torch.cuda.synchronize()
+            for a, b, c in zip(on, off, want):
+                assert torch.equal(a, b) and torch.equal(a, c), cp
+            assert zc.keys() == zc_p.keys()
+            for key in zc:
+                assert torch.equal(zc[key], zc_p[key]), (key, cp)
+    return conv_implicit.counts_in_kernel(n_out, g)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("k,stride,c_in,c_out,hw,N", [
+    (3, 1, 64, 256, 14, 2),     # one image per tile (196 rows an image)
+    (1, 1, 256, 128, 7, 2),     # 49 rows an image: tiles cross images
+    (3, 2, 16, 64, 8, 3),       # 16 rows an image: 4 images per tile
+    (1, 1, 32, 64, 2, 40),      # 4 rows an image: past ZC_SLOTS images
+    (7, 2, 3, 64, 23, 2),       # the byte-gather stem
+])
+def test_conv_zero_counts_every_group_path(dev, g, k, stride, c_in, c_out,
+                                           hw, N):
+    """Groups inside a thread (g <= 8), over a lane pair and a quad (16,
+    32), over the two column warps (64); tiles in one image and across
+    2, 4 and more images than the shared slots hold."""
+    case = list(_case(k, stride, c_in, c_out, hw, None, dev,
+                      seed=g + c_in + hw, N=N))
+    case[5] = _zero_bias(case[5])
+    assert _check_conv_zero_counts(case, k, stride, g)
+
+
+@pytest.mark.parametrize("c_out,g", [(72, 8), (40, 8), (12, 4), (20, 4),
+                                     (96, 32), (130, 2), (192, 64)])
+@pytest.mark.parametrize("sc_kind", [None, "f32", "int8"])
+def test_conv_zero_counts_ragged_n_out(dev, c_out, g, sc_kind):
+    """n_out off the 64-channel tile (groups past n_out skipped), off
+    multiples of 8 (the epilogue's scalar path), and every shortcut."""
+    case = list(_case(3, 1, 16, c_out, 9, sc_kind, dev, seed=c_out + g,
+                      N=3))
+    case[5] = _zero_bias(case[5])
+    assert _check_conv_zero_counts(case, 3, 1, g)
+
+
+@pytest.mark.parametrize("c_out,g", [(256, 128), (96, 48), (64, 3),
+                                     (60, 8)])
+def test_conv_zero_counts_recounted_on_y(dev, c_out, g):
+    """A group wider than the tile, or not a power of two, or not
+    dividing n_out (c_out 60, g 8: the plain version refuses it too):
+    the wrapper recounts on y, as the JAX op's ``profile_fast`` false."""
+    case = list(_case(1, 1, 32, c_out, 7, None, dev, seed=c_out, N=2))
+    case[5] = _zero_bias(case[5])
+    if c_out % g:
+        with pytest.raises(ValueError, match="groups"):
+            _check_conv_zero_counts(case, 1, 1, g)
+        return
+    assert not _check_conv_zero_counts(case, 1, 1, g)
+
+
+@pytest.mark.parametrize("k,c_in,c_out,hw,g", [
+    (3, 512, 512, 7, 8), (3, 256, 256, 14, 64), (1, 2048, 512, 7, 32),
+    (1, 512, 2048, 7, 16)])
+def test_conv_zero_counts_under_split_k(dev, k, c_in, c_out, hw, g):
+    """ResNet50's small maps, where the plan splits K over a cluster:
+    only the leaders' own rows count, under the plan and with one and
+    with more splits."""
+    case = list(_case(k, 1, c_in, c_out, hw, "int8", dev, seed=c_in + g))
+    case[5] = _zero_bias(case[5])
+
+    def more(p, n):
+        per = max(-(-n // conv_implicit.MAX_SPLITS), p.chunks_per // 2, 1)
+        return [p._replace(splits=1, chunks_per=n),
+                p._replace(splits=-(-n // per), chunks_per=per)]
+    assert _check_conv_zero_counts(case, k, 1, g, variants=more)
+
+
+def test_conv_zero_counts_without_relu_and_graph_replay(dev):
+    """Without the ReLU the zeros are rare but still counted; a profiled
+    launch keeps no state between calls (the wrapper zeroes the counts):
+    a second call and CUDA-graph replays give the eager counts."""
+    case = list(_case(3, 1, 64, 128, 14, "f32", dev, seed=5))
+    case[5] = _zero_bias(case[5])
+    assert _check_conv_zero_counts(case, 3, 1, 8, relu=False)
+    x, codes, bitmap, values, eff, bias, sc = case
+    kw = dict(k=3, stride=1, relu=True, return_acc=False, profile_g=16)
+    for kern, _, _, sparse in _conv_pairs():
+        wts = (bitmap, values) if sparse else (codes,)
+        first = kern(x, *wts, eff, bias, sc, **kw)
+        again = kern(x, *wts, eff, bias, sc, **kw)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = kern(x, *wts, eff, bias, sc, **kw)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        for out in (again, captured):
+            assert torch.equal(first[0], out[0])
+            for key in first[2]:
+                assert torch.equal(first[2][key], out[2][key]), key
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 10), (2, 2048, 1000),
