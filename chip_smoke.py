@@ -12,14 +12,19 @@
    at most 1 on at most 1e-5 of them; ``sparse_matvec`` and
    ``cfmm_matmul`` (the int8 and cfmm modes' product) also at the LM's
    linear shapes, ``cfmm_matmul`` with its plan (variant, tiles,
-   splits); ``flash_attention`` in bf16 and f32 at SmolLM-360M's
+   splits), also at the dense LM configs' widest linears and untied
+   heads; ``sparse_matvec`` also at Gemma3-1B's; ``flash_attention`` in
+   bf16 and f32 at SmolLM-360M's
    prefill shapes, rectangular Tq < Tk, a non-causal Tk = 1500, a
-   Gemma3-like window and Dv != D, within ``FLASH_TOL``; prints the
+   Gemma3-like window and Dv != D, and in bf16 at the prefill shapes of
+   StableLM-3B (D = 80), Gemma3-1B (D = 256, window 512 and none) and
+   Phi-3-medium (D = 128) at T = 1024, within ``FLASH_TOL``; prints the
    variant each shape runs (flash: the tensor-core ``mma`` or the
    CUDA-core ``fma`` kernel; ``sparse_matvec``: ``rows`` or ``split`` and
    its split over K); times each (median of CUDA-event timings of
    CUDA-graph replays) beside its bound and, where one PyTorch call
-   computes the same function, that call (SDPA for attention;
+   computes the same function, that call (SDPA for attention, a window
+   as its boolean mask;
    ``torch._int_mm`` on the dense or unpacked codes for ``sparse_matvec``
    and every conv shape — of an im2col built outside the timed region,
    K zero-padded to a multiple of 8), checked against the kernel's int32
@@ -78,19 +83,37 @@
    ``reference_profile``; every request's logits bit-identical to the
    single-engine card forward of its rows, the launch counters checked
    per wave;
-4. serves SmolLM-360M at full width (32 layers, d 960, 15/5 heads, vocab
-   49152; seeded random weights initialised and compiled on the card)
-   through the LM ``ServingEngine`` in ``int8`` and ``sparse_cfmm``: 8
-   requests of 37-1000 prompt tokens, 16 new tokens each, 4 slots.
-   Checks 32 ``flash_attention`` launches per request and 224
-   ``cfmm_matmul`` (``int8``) or ``sparse_matvec`` (``sparse_cfmm``) per
-   forward, the first two prefills' logits against the CPU's plain
-   forward of the same compiled tree, and the greedy tokens against a
-   card run with the plain attention substituted, all within
-   ``LM_LOGIT_BOUND``; in ``int8`` also against a card run with the
-   plain (float64) int8 product substituted, whose profile it prints
-   beside the kernel run's (which must show no float64 GEMM); reports
-   prefill and decode tokens/s and one profiled run's idle share;
+3c. runs the CNN zoo's dense reference forwards (the ``dense`` mode:
+   im2col + ``torch.matmul``, no port kernel) at full width on the card,
+   2 images: ResNet50, MobileNetV2, RepVGG-A0 fused and unfused, each
+   within ``DENSE_CNN_REL_BOUND`` of the CPU's dense forward, ResNet50's
+   distance to its served ``int8`` logits printed;
+4. serves the dense LM zoo at full width (``LM_PATHS``; seeded random
+   weights initialised and compiled on the card, one model tree and one
+   engine alive at a time) through the LM ``ServingEngine``: SmolLM-360M
+   in ``int8``, ``sparse_cfmm`` and ``dense`` (8 requests of 37-1000
+   prompt tokens, 16 new tokens each), Gemma3-1B in ``dense``, ``int8``
+   and ``sparse_cfmm``, StableLM-3B and Phi-3-medium-14B in ``dense`` and
+   ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), 4 slots.
+   Checks one ``flash_attention`` launch per layer and request, and per
+   forward one ``cfmm_matmul`` (``int8``) or ``sparse_matvec``
+   (``sparse_cfmm``) per linear (7 per layer, and the untied head), the
+   first prefills' logits against the CPU's plain forward of the same
+   tree (SmolLM two, Gemma3 one; the others are too large for a CPU
+   forward in the time), and the logits and greedy tokens against a card
+   run with the plain versions of every kernel of the path substituted,
+   all within ``LM_LOGIT_BOUND`` (StableLM's and Phi-3's ``int8`` decode
+   steps within their ``LM_DECODE_BOUNDS``, with the witnesses of where
+   that spread comes from: ``decode_witnesses``); in every compiled mode
+   also against a card run with only the linears' plain version (the
+   float64 product) substituted, which must be equal to the bit, and in
+   ``int8`` that run's profile beside the kernel run's (which must show
+   no float64 GEMM); in the compiled modes one stacked leaf compiled on
+   the card equals the CPU's compile byte for byte; in ``dense`` the
+   bucketed prefill against the unpadded one on the card, within
+   ``LM_BUCKET_BOUND``, which a planted length fault must fail;
+   reports prefill and decode tokens/s, one profiled run's idle share
+   and the peak device memory of each path;
 5. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
@@ -99,6 +122,7 @@ line.  It also fails without CUDA, and outside a checkout of the repo.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -271,7 +295,17 @@ CFMM_SHAPES = [("head", 2, 2048, 1000), ("head", 2, 1280, 1000),
                ("head", 128, 2048, 1000), ("LM decode", 4, 960, 2560),
                ("LM decode", 4, 2560, 960), ("LM gate/up", 64, 960, 2560),
                ("LM q/o", 1024, 960, 960), ("LM k/v", 1024, 960, 320),
-               ("LM gate/up", 1024, 960, 2560), ("LM down", 1024, 2560, 960)]
+               ("LM gate/up", 1024, 960, 2560), ("LM down", 1024, 2560, 960),
+               # the dense LM configs' widest linears and untied heads
+               # (the prefill's head takes the last position only: M = 1)
+               ("Gemma3 gate/up", 1024, 1152, 6912),
+               ("StableLM gate/up", 1024, 2560, 6912),
+               ("StableLM head decode", 4, 2560, 50304),
+               ("Phi-3 gate/up", 1024, 5120, 17920),
+               ("Phi-3 down", 1024, 17920, 5120),
+               ("Phi-3 gate/up decode", 4, 5120, 17920),
+               ("Phi-3 head prefill", 1, 5120, 100352),
+               ("Phi-3 head decode", 4, 5120, 100352)]
 
 
 def conv_case(spec, dev, gen):
@@ -625,7 +659,12 @@ def check_cfmm(name, M, K, N, dev, gen):
 SPARSE_SHAPES = [("head", 2, 2048, 1000), ("LM q/o", 1024, 960, 960),
                  ("LM k/v", 1024, 960, 320), ("LM gate/up", 1024, 960, 2560),
                  ("LM down", 1024, 2560, 960), ("LM gate/up", 64, 960, 2560),
-                 ("LM gate/up decode", 4, 960, 2560)]
+                 ("LM gate/up decode", 4, 960, 2560),
+                 # Gemma3-1B's linears in sparse_cfmm (K = 1152, 6912)
+                 ("Gemma3 q", 1024, 1152, 1024),
+                 ("Gemma3 gate/up", 1024, 1152, 6912),
+                 ("Gemma3 down", 1024, 6912, 1152),
+                 ("Gemma3 gate/up decode", 4, 1152, 6912)]
 
 
 def check_sparse_matvec(label, M, K, N, dev, gen):
@@ -683,6 +722,14 @@ FLASH_SHAPES = [
     ("Gemma3-like window 512", 1, 1, 4, 1024, 1024, 256, 256, True, 512),
     ("MLA-like D=192 Dv=128", 1, 16, 1, 512, 512, 192, 128, True, None),
 ]
+# the dense LM configs' prefill attention at the largest bucket, bf16 only
+LM_FLASH_SHAPES = [
+    ("StableLM-3B prefill T=1024", 1, 32, 1, 1024, 1024, 80, 80, True, None),
+    ("Gemma3-1B local T=1024", 1, 1, 4, 1024, 1024, 256, 256, True, 512),
+    ("Gemma3-1B global T=1024", 1, 1, 4, 1024, 1024, 256, 256, True, None),
+    ("Phi-3-medium prefill T=1024", 1, 10, 4, 1024, 1024, 128, 128, True,
+     None),
+]
 # kernel against plain version on the card (as tests/test_torch_kernels_
 # cuda.py): the sums run in other orders and the kernel's p is relative
 # to a running max, so p rounds to bf16 at other points.  f32: 2e-5
@@ -706,8 +753,9 @@ def flash_work(q, k, v, causal, window):
 
 def check_flash(spec, dtype, dev, gen):
     """The flash-attention kernel at one shape against its plain version;
-    the library yardstick is SDPA (``enable_gqa=True``) where Tq = Tk and
-    there is no window (its causal mask is top-left aligned)."""
+    the library yardstick is SDPA (``enable_gqa=True``) where Tq = Tk (its
+    causal mask is top-left aligned), with the window as a boolean
+    ``attn_mask``."""
     from repro_torch.kernels import flash_attention as fa
     label, B, KVH, G, Tq, Tk, D, Dv, causal, window = spec
     q = torch.randn((B, KVH, G, Tq, D), generator=gen)
@@ -731,10 +779,13 @@ def check_flash(spec, dtype, dev, gen):
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS
                           if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
     library_ms = None
-    if Tq == Tk and window is None:
+    if Tq == Tk:
         qs = q.reshape(B, KVH * G, Tq, D)
+        mask = None if window is None else fa.position_mask(
+            Tq, Tk, causal, window, q.device)
         sdpa = lambda: F.scaled_dot_product_attention(
-            qs, k, v, is_causal=causal, enable_gqa=True)
+            qs, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
         lib_err = float((sdpa().reshape(out.shape).float()
                          - want.float()).abs().max())
         library_ms = median_ms(sdpa)
@@ -1415,43 +1466,169 @@ def fleet_phase(kernels, card, trees, serve_images):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: SmolLM-360M served at full width through the LM engine
+# Phase 3c: the CNN zoo's dense reference forwards on the card
+# ---------------------------------------------------------------------------
+
+# max |dlogit| / max |logit| allowed between the card's dense forward and
+# the CPU's: the same f32 products (cuBLAS with TF32 off, PyTorch's
+# default for matmuls) summed in other orders.  A wrong patch order or
+# SAME padding moves logits by the order of max |logit|.
+DENSE_CNN_REL_BOUND = 1e-4
+
+
+def dense_cnn_phase(kernels, card, trees, serve_images):
+    """The zoo's dense reference forwards (``apply`` on unboxed float
+    trees, the ``dense`` mode) at full width on the card, on the serve
+    phase's request of 2 images: ResNet50, MobileNetV2 and RepVGG-A0
+    fused and unfused, each held to the CPU's dense forward of the same
+    tree within ``DENSE_CNN_REL_BOUND``, launching none of the port's
+    kernels (the convs are im2col + ``torch.matmul``, as JAX's are
+    ``jnp.matmul``); ResNet50's distance to its served ``int8`` logits is
+    printed, not checked."""
+    from repro_torch import nn
+    from repro_torch.serving.pipeline import PipelineEngine
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the dense forward would not be f32")
+    x = torch.from_numpy(serve_images[1])
+    out = {}
+    for model, unfused in (("resnet50", False), ("mobilenet_v2", False),
+                           ("repvgg_a0", False), ("repvgg_a0", True)):
+        label = f"{model}{'/unfused' if unfused else ''}/dense"
+        cfg, params = model_config(model)
+        if unfused:
+            params = cfg.init(torch.Generator().manual_seed(0))
+        tree = nn.unbox(params)
+        t0 = time.perf_counter()
+        want = cfg.apply(tree, x)
+        cpu_s = time.perf_counter() - t0
+        card_tree = nn.to_device(tree, "cuda")
+        xc = x.cuda()
+        cfg.apply(card_tree, xc)                         # warm-up
+        for kern in kernels.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cfg.apply(card_tree, xc)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        counts = {n: k.launches for n, k in kernels.items() if k.launches}
+        check(not counts, f"{label}: launched the port's kernels {counts}")
+        got = got.cpu()
+        check(got.shape == (2, cfg.num_classes)
+              and bool(torch.isfinite(got).all()),
+              f"{label}: logits of shape {tuple(got.shape)} or non-finite")
+        d = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        top1 = bool((got.argmax(-1) == want.argmax(-1)).all())
+        res = dict(max_abs_dlogit=d, max_abs_logit=scale, rel=d / scale,
+                   top1_equal=top1, card_ms=card_ms, cpu_s=cpu_s)
+        line = (f"[dense] {label} full width, 2 images: card vs CPU dense "
+                f"max|dlogit|={d:.3g} ({d / scale:.3g} of max|logit| "
+                f"{scale:.3g}) top1_equal={top1}; card forward "
+                f"{card_ms:.1f} ms, CPU {cpu_s:.1f}s on {card}")
+        if model == "resnet50":
+            eng = PipelineEngine(cfg, trees[("resnet50", "int8")][1],
+                                 mode="int8", n_stages=1, microbatch=2,
+                                 device="cuda")
+            served = torch.from_numpy(eng.run_batch(serve_images[1]))
+            res["int8_max_abs_dlogit"] = float((served - got).abs().max())
+            res["int8_top1_equal"] = bool((served.argmax(-1)
+                                           == got.argmax(-1)).all())
+            line += (f"; served int8 vs dense max|dlogit|="
+                     f"{res['int8_max_abs_dlogit']:.3g} top1_equal="
+                     f"{res['int8_top1_equal']}")
+        print(line, flush=True)
+        check(d <= DENSE_CNN_REL_BOUND * scale and top1,
+              f"{label}: card dense logits off the CPU's by {d:.3g}")
+        out[label] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the dense LM zoo served at full width through the LM engine
 # ---------------------------------------------------------------------------
 
 LM_PROMPTS = (37, 64, 130, 255, 300, 511, 777, 1000)
 LM_NEW, LM_SLOTS = 16, 4
+# the three larger configs: 4 requests (buckets 64, 512, 1024, 1024, so
+# Gemma3's window of 512 binds), 8 new tokens each
+DENSE_LM_PROMPTS = (37, 300, 777, 1000)
+DENSE_LM_NEW = 8
 LM_MAX_SEQ = 1024 + 16 + 8
 LM_LINEARS = 7                  # q, k, v, o, gate, up, down per layer
+# (arch, modes, prompts, new tokens, prefills held against the CPU's plain
+# forward)
+LM_PATHS = [
+    ("smollm_360m", ("int8", "sparse_cfmm", "dense"), LM_PROMPTS, LM_NEW, 2),
+    ("gemma3_1b", ("dense", "int8", "sparse_cfmm"), DENSE_LM_PROMPTS,
+     DENSE_LM_NEW, 1),
+    ("stablelm_3b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
+    # f32 weights are 58.6 GB: too large for a CPU forward in the time
+    ("phi3_medium_14b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
+]
+# the kernel each compiled mode's linears launch
+LM_LINEAR = {"int8": "cfmm_matmul", "sparse_cfmm": "sparse_matvec"}
+# (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab) as
+# published (configs/<arch>.py names the source)
+PUBLISHED = {
+    "smollm_360m": (32, 960, 15, 5, 64, 2560, 49152),
+    "gemma3_1b": (26, 1152, 4, 1, 256, 6912, 262144),
+    "stablelm_3b": (32, 2560, 32, 32, 80, 6912, 50304),
+    "phi3_medium_14b": (40, 5120, 40, 10, 128, 17920, 100352),
+}
 # max |dlogit| allowed between two forwards of the same tokens: the card
-# against the CPU's plain versions, and the kernel against its plain
-# version substituted on the card.  Both sides compute the same function
+# against the CPU's plain versions, and the kernels against their plain
+# versions substituted on the card.  Both sides compute the same function
 # with bf16 rounded at other points (flash p and sums, CUDA's and the
-# CPU's exp/rsqrt/sin/cos); one such rounding can flip an int8 activation
-# code under a tensor-wide scale, and 32 layers carry the flip on.
-# Measured on an H100 80GB HBM3 (700 W): 0.12 card vs CPU (prompts 37
-# and 64) and 0.31 kernel vs plain attention, with logits of std 0.54;
-# a wrong mask or a lost tile moves logits by several standard
-# deviations.
+# CPU's exp/rsqrt/sin/cos, cuBLAS's and the CPU's bf16 GEMMs); one such
+# rounding can flip an int8 activation code under a tensor-wide scale,
+# and the layers carry the flip on.  Measured on an H100 80GB HBM3
+# (700 W), SmolLM-360M: 0.12 card vs CPU (prompts 37 and 64) and 0.31
+# kernel vs plain attention, with logits of std 0.54; a wrong mask or a
+# lost tile moves logits by several standard deviations.
 LM_LOGIT_BOUND = 0.5
+# The int8 decode steps of StableLM-3B and Phi-3-medium spread further:
+# 0.7266 and 0.8479 against the plain versions (logits of std 0.88),
+# every prefill within 0.31.  Measured cause (``decode_witnesses``, H100
+# 80GB HBM3, 700 W): the first decode step on the same cache is exact;
+# the spread sits in the 37-token slot, which attends to its prompt's
+# pad rows (37 to 63) because the slots share one KV length counter, as
+# in the JAX engine; swapping only those rows of the plain run's cache
+# into the kernel run's moves the step by 0.74 / 0.85; the same requests
+# one slot at a time spread 0.20 / 0.21; a per-row activation scale
+# leaves 0.65 / 0.64; one SDPA call as the attention sits 0.65-0.85 from
+# both runs.  A planted fault (one lost 64-key tile) reads 2.2-3.7 on
+# those decode steps.  Held to 1.0: 1.17x the largest healthy reading,
+# below half the planted one.  Every other decode step, and every
+# prefill, keeps LM_LOGIT_BOUND.
+LM_DECODE_BOUNDS = {"stablelm_3b/int8": 1.0, "phi3_medium_14b/int8": 1.0}
+# max |dlogit| of a bucketed dense prefill against the unpadded one on
+# the card: measured 0 to 0.0703 (H100 80GB HBM3, 700 W; SmolLM, Gemma3,
+# StableLM, Phi-3 at 37 -> 64 and 777 -> 1024 tokens), held with 2x
+# headroom; a prefill that reads the wrong position reads several
+LM_BUCKET_BOUND = 0.15
 
 
-def lm_requests(cfg):
+def lm_requests(cfg, prompts=LM_PROMPTS, new=LM_NEW):
     from repro_torch.serving.engine import Request
     rng = np.random.RandomState(0)
     return [Request(rid=i, prompt=[int(t) for t in rng.randint(1, cfg.vocab,
                                                                L)],
-                    max_new_tokens=LM_NEW)
-            for i, L in enumerate(LM_PROMPTS)]
+                    max_new_tokens=new)
+            for i, L in enumerate(prompts)]
 
 
 class LMRecorder:
     """Wraps ``lm.forward_prefill``/``forward_decode`` for one engine run:
     per call its kind, the active slots, the last-position logits (kept
     on the card), and the call's time with the card synchronised on both
-    sides.  The engine syncs at every step anyway (it reads the argmax)."""
+    sides.  The engine syncs at every step anyway (it reads the argmax).
+    With ``snapshot``, also the first decode step's batch and a copy of
+    the cache it was given."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, snapshot=False):
         self.engine, self.calls = engine, []
+        self.snapshot = None if snapshot else False
 
     def __enter__(self):
         from repro_torch.models import lm
@@ -1459,6 +1636,8 @@ class LMRecorder:
 
         def wrap(kind, fn):
             def call(*a, **kw):
+                if kind == "decode" and self.snapshot is None:
+                    self.snapshot = (a[1], _clone_tree(a[3]))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 logits, nc = fn(*a, **kw)
@@ -1478,6 +1657,70 @@ class LMRecorder:
     def __exit__(self, *exc):
         from repro_torch.models import lm
         lm.forward_prefill, lm.forward_decode = self._orig
+
+
+@contextlib.contextmanager
+def plain_versions(names, attention=None):
+    """Substitute the named kernels' plain versions in ``ops`` for one
+    run (the LM paths launch ``flash_attention``, ``cfmm_matmul`` and
+    ``sparse_matvec``); ``attention`` replaces the flash kernel's plain
+    version by another function of the same signature."""
+    from repro_torch.kernels import cfmm_matmul, flash_attention, ops, ref
+    plain = {"flash_attention": ("_flash_kernel", attention or
+                                 flash_attention.flash_attention_plain),
+             "cfmm_matmul": ("_cfmm_kernel", cfmm_matmul.cfmm_matmul_plain),
+             "sparse_matvec": ("sparse_matvec", ref.sparse_matvec_ref)}
+    subs = dict(plain[n] for n in names)
+    orig = {name: getattr(ops, name) for name in subs}
+    for name, fn in subs.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
+
+
+@contextlib.contextmanager
+def per_row_scales():
+    """Every LM linear quantizes its input rows each under its own scale
+    (``apply_linear(per_row=True)``), for one run."""
+    import functools
+    from repro_torch.models import attention, layers
+    orig = attention.apply_linear
+    row = functools.partial(orig, per_row=True)
+    attention.apply_linear = layers.apply_linear = row
+    try:
+        yield
+    finally:
+        attention.apply_linear = layers.apply_linear = orig
+
+
+def sdpa_attention(q, k, v, causal=True, window=None):
+    """The flash kernel's function as one SDPA call, its mask by
+    position: a third implementation of the attention."""
+    from repro_torch.kernels import flash_attention as fa
+    return _sdpa(q, k, v, fa.position_mask(q.shape[3], k.shape[2], causal,
+                                           window, q.device))
+
+
+def lost_tile_attention(q, k, v, causal=True, window=None):
+    """A planted fault: ``sdpa_attention`` with keys 64 to 127 hidden
+    from every query past them, as if a kernel lost one KV tile."""
+    from repro_torch.kernels import flash_attention as fa
+    Tq, Tk = q.shape[3], k.shape[2]
+    mask = fa.position_mask(Tq, Tk, causal, window, q.device)
+    qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    return _sdpa(q, k, v, mask & ~((kpos >= 64) & (kpos < 128)
+                                   & (qpos >= 128)))
+
+
+def _sdpa(q, k, v, mask):
+    B, KVH, G, Tq, D = q.shape
+    o = F.scaled_dot_product_attention(q.reshape(B, KVH * G, Tq, D), k, v,
+                                       attn_mask=mask, enable_gqa=True)
+    return o.reshape(B, KVH, G, Tq, v.shape[-1])
 
 
 def compare_runs(calls_a, calls_b):
@@ -1513,11 +1756,11 @@ def f64_gemm(key: str) -> bool:
         t in k for t in ("double", "f64", "dgemm", "zgemm"))
 
 
-def profile_lm(make_engine, cfg, label):
-    """One more served run under ``torch.profiler``: wall time, the card's
-    busy time (sum of device kernel times on the one stream), idle share,
-    the time of float64 GEMMs and of ``direct_copy`` (casts and copies),
-    and the kernels that take most."""
+def profile_lm(make_engine, requests, label):
+    """One more served run (``requests()``) under ``torch.profiler``: wall
+    time, the card's busy time (sum of device kernel times on the one
+    stream), idle share, the time of float64 GEMMs and of
+    ``direct_copy`` (casts and copies), and the kernels that take most."""
     from torch.profiler import ProfilerActivity, profile
     eng = make_engine()
     torch.cuda.synchronize()
@@ -1526,7 +1769,7 @@ def profile_lm(make_engine, cfg, label):
     with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        eng.run(lm_requests(cfg))
+        eng.run(requests())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
@@ -1561,74 +1804,130 @@ def profile_lm(make_engine, cfg, label):
                      for e in top])
 
 
-def serve_lm(kernels, card):
-    """Serve SmolLM-360M at full width on the card in int8 and sparse_cfmm:
-    seeded random weights initialised and compiled on the card; launch
-    counts of one run; the first two prefills' logits against the CPU's
-    plain forward of the same compiled tree; the greedy tokens against a
-    card run with the flash kernel's plain version substituted; in int8,
-    the logits and tokens against a card run with ``cfmm_matmul``'s plain
-    version (the float64 product) substituted, and that run's profile
-    beside the kernel run's; prefill and decode tokens/s; one profiled
-    run."""
+def gib(n_bytes) -> str:
+    return f"{n_bytes / 2 ** 30:.2f} GiB"
+
+
+def bucketed_against_unpadded(tree, cfg, reqs, label):
+    """``dense`` only: a bucketed (end-padded) prefill against the
+    unpadded one, on the card, for the shortest and a 777-token prompt
+    (buckets 64 and 1024).  Exact on the CPU (tests); on the card cuBLAS
+    may pick another GEMM for another M.  A planted fault, the bucketed
+    prefill told a length one short (it reads the logits of the token
+    before the last), must fall outside the bound.  Returns max |dlogit|
+    by prompt, and the planted fault's."""
+    from repro_torch import nn
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import _bucket_len
+    out, planted = {}, {}
+    for r in (reqs[0], next(r for r in reqs if len(r.prompt) == 777)):
+        L = len(r.prompt)
+        bucket = _bucket_len(L, LM_MAX_SEQ)
+        logits = []
+        for width, length in ((L, None), (bucket, L), (bucket, L - 1)):
+            toks = torch.zeros((1, width), dtype=torch.long)
+            toks[0, :L] = torch.tensor(r.prompt)
+            batch = {"tokens": toks.cuda()}
+            if length is not None:
+                batch["length"] = torch.tensor([length], dtype=torch.int32)
+            cache = nn.unbox(lm.cache_init(cfg, 1, LM_MAX_SEQ,
+                                           device="cuda"))
+            logits.append(lm.forward_prefill(tree, batch, cfg, cache)[0]
+                          .float())
+        out[L] = float((logits[0] - logits[1]).abs().max())
+        planted[L] = float((logits[0] - logits[2]).abs().max())
+    print(f"[lm] {label}: bucketed vs unpadded prefill on the card: "
+          f"max|dlogit| by prompt {out}; planted length-1 fault "
+          f"{planted}", flush=True)
+    check(max(out.values()) <= LM_BUCKET_BOUND,
+          f"{label}: bucketed prefill off the unpadded one by {out}")
+    check(min(planted.values()) > LM_BUCKET_BOUND,
+          f"{label}: the planted length fault passes the bound: {planted}")
+    return dict(max_dlogit=out, planted_length_fault=planted)
+
+
+def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
+    """Serve one LM config at full width on the card in each of ``modes``:
+    seeded random weights initialised (and compiled) on the card; launch
+    counts of one run; the first ``n_cpu`` prefills' logits against the
+    CPU's plain forward of the same tree; the logits and greedy tokens
+    against a card run with every kernel of the path replaced by its
+    plain version; in a compiled mode, one leaf's card-compiled bytes
+    against the CPU's, and the run with only the linears' plain version
+    (the float64 product), equal to the bit, with that run's profile in
+    ``int8``; the ``LM_DECODE_BOUNDS`` paths' decode witnesses; in
+    ``dense``, the bucketed prefill against the unpadded one; prefill and
+    decode tokens/s; one profiled run; the peak device memory.  One model
+    tree and one engine live at a time."""
     from repro_torch import nn
     from repro_torch.core.compiled_linear import _compile_leaf, ensure_compiled
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_cfg
     from repro_torch.models import lm
     from repro_torch.serving.engine import ServingEngine, _bucket_len
-    cfg = build_cfg("smollm_360m", "full")
+    cfg = build_cfg(arch, "full")
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.head_dim, cfg.d_ff, cfg.vocab) == (32, 960, 15, 5, 64, 2560,
-                                                  49152),
-          "smollm_360m: not the published full width")
+           cfg.head_dim, cfg.d_ff, cfg.vocab) == PUBLISHED[arch],
+          f"{arch}: not the published full width")
+    requests = lambda: lm_requests(cfg, prompts, new)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
     n_params = sum(p.value.numel() for p in nn.tree_leaves(
         params, is_leaf=lambda x: isinstance(x, nn.Param)))
-    print(f"[lm] smollm_360m full width: {n_params / 1e6:.1f} M params, "
-          f"init on the card {time.perf_counter() - t0:.1f}s", flush=True)
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] {arch} full width: {n_params / 1e6:.1f} M params, init on "
+          f"the card {time.perf_counter() - t0:.1f}s; f32 tree "
+          f"{gib(4 * n_params)}, peak during init {gib(init_peak)} of "
+          f"{gib(torch.cuda.get_device_properties(0).total_memory)}",
+          flush=True)
+    head = 0 if cfg.tie_embeddings else 1      # an untied head's linear
     results = {}
-    for mode in ("int8", "sparse_cfmm"):
-        label = f"smollm_360m/{mode}"
+    for i, mode in enumerate(modes):
+        label = f"{arch}/{mode}"
         t0 = time.perf_counter()
-        compiled = ensure_compiled(params, mode, 0.8)
+        tree = ensure_compiled(params, mode, 0.8)
         torch.cuda.synchronize()
         t_compile = time.perf_counter() - t0
-        # one stacked leaf: card-compiled bytes against the CPU's compile
-        leaf = params["template"][0]["mixer"]["k"]
-        cpu_leaf = _compile_leaf(nn.Param(leaf.value.cpu(), leaf.axes,
-                                          leaf.kind), mode, 0.8)
-        for key, p in cpu_leaf.items():
-            card_bytes = compiled["template"][0]["mixer"]["k"][key].cpu()
-            check(torch.equal(card_bytes, p.value),
-                  f"{label}: the card's compiled k[{key}] differs from the "
-                  "CPU's")
-        make = lambda: ServingEngine(cfg, compiled, mode=mode,
-                                     batch_slots=LM_SLOTS,
-                                     max_seq=LM_MAX_SEQ, device="cuda")
-        make().run(lm_requests(cfg)[:2])                 # warm-up
+        linear = LM_LINEAR.get(mode)
+        if linear:
+            # one stacked leaf: card-compiled bytes against the CPU's
+            leaf = params["template"][0]["mixer"]["k"]
+            cpu_leaf = _compile_leaf(nn.Param(leaf.value.cpu(), leaf.axes,
+                                              leaf.kind), mode, 0.8)
+            for key, p in cpu_leaf.items():
+                card_bytes = tree["template"][0]["mixer"]["k"][key].cpu()
+                check(torch.equal(card_bytes, p.value),
+                      f"{label}: the card's compiled k[{key}] differs from "
+                      "the CPU's")
+        if i == len(modes) - 1:
+            params = None                    # the last mode: one tree left
+            torch.cuda.empty_cache()
+        make = lambda slots=LM_SLOTS: ServingEngine(
+            cfg, tree, mode=mode, batch_slots=slots, max_seq=LM_MAX_SEQ,
+            device="cuda")
+        make().run(requests()[:2])                       # warm-up
         for kern in kernels.values():
             kern.launches = 0
         eng = make()
-        reqs = lm_requests(cfg)
+        reqs = requests()
+        witnessed = label in LM_DECODE_BOUNDS
         t0 = time.perf_counter()
-        with LMRecorder(eng) as rec:
+        with LMRecorder(eng, snapshot=witnessed) as rec:
             eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: kern.launches for name, kern in kernels.items()}
         n_fwd = len(rec.calls)
-        want = {"flash_attention": cfg.n_layers * len(LM_PROMPTS)}
-        linear = "sparse_matvec" if mode == "sparse_cfmm" else "cfmm_matmul"
-        want[linear] = cfg.n_layers * LM_LINEARS * n_fwd
+        want = {"flash_attention": cfg.n_layers * len(prompts)}
+        if linear:
+            want[linear] = (cfg.n_layers * LM_LINEARS + head) * n_fwd
         for name, got in counts.items():
             check(got == want.get(name, 0), f"{label}: {got} {name} "
                   f"launches in {n_fwd} forwards, want {want.get(name, 0)}")
         for r in reqs:
-            check(r.done and len(r.tokens_out) == LM_NEW
+            check(r.done and len(r.tokens_out) == new
                   and all(0 <= t < cfg.vocab for t in r.tokens_out),
                   f"{label}: request {r.rid} incomplete")
         logits_ok = all(bool(torch.isfinite(c[2][c[1]]).all())
@@ -1636,36 +1935,36 @@ def serve_lm(kernels, card):
         check(logits_ok, f"{label}: non-finite logits")
         pre = [c for c in rec.calls if c[0] == "prefill"]
         dec = [c for c in rec.calls if c[0] == "decode"]
-        pre_tok = sum(LM_PROMPTS)
-        pre_bucket = sum(_bucket_len(L, LM_MAX_SEQ) for L in LM_PROMPTS)
+        pre_tok = sum(prompts)
+        pre_bucket = sum(_bucket_len(L, LM_MAX_SEQ) for L in prompts)
         dec_tok = sum(len(c[1]) for c in dec)
         pre_s, dec_s = sum(c[3] for c in pre), sum(c[3] for c in dec)
         print(f"[lm] {label}: compile on the card {t_compile:.1f}s; "
-              f"{len(reqs)} requests x {LM_NEW} tokens in {wall:.2f}s on "
+              f"{len(reqs)} requests x {new} tokens in {wall:.2f}s on "
               f"{card}; prefill {pre_tok} tokens ({pre_bucket} bucketed) in "
               f"{pre_s * 1e3:.1f} ms = {pre_tok / pre_s:.0f} tok/s; decode "
               f"{dec_tok} tokens in {len(dec)} steps, {dec_s * 1e3:.1f} ms "
               f"= {dec_tok / dec_s:.1f} tok/s; launches {counts}",
               flush=True)
 
-        # the first two prefills against the CPU's plain forward
+        # the first n_cpu prefills against the CPU's plain forward
         t0 = time.perf_counter()
-        cpu_params = nn.to_device(compiled, "cpu")
+        cpu_tree = nn.to_device(tree, "cpu") if n_cpu else None
         d_cpu = []
-        for i in range(2):
-            L = LM_PROMPTS[i]
+        for j in range(n_cpu):
+            L = prompts[j]
             bucket = _bucket_len(L, LM_MAX_SEQ)
             toks = torch.zeros((1, bucket), dtype=torch.long)
-            toks[0, :L] = torch.tensor(reqs[i].prompt)
-            check(torch.equal(pre[i][4]["tokens"].cpu(), toks),
-                  f"{label}: prefill {i} saw other tokens")
+            toks[0, :L] = torch.tensor(reqs[j].prompt)
+            check(torch.equal(pre[j][4]["tokens"].cpu(), toks),
+                  f"{label}: prefill {j} saw other tokens")
             cache = nn.unbox(lm.cache_init(cfg, 1, LM_MAX_SEQ))
-            ref, _ = lm.forward_prefill(
-                cpu_params, {"tokens": toks,
-                             "length": torch.tensor([L], dtype=torch.int32)},
-                cfg, cache)
+            batch = {"tokens": toks}
+            if bucket != L:
+                batch["length"] = torch.tensor([L], dtype=torch.int32)
+            ref, _ = lm.forward_prefill(cpu_tree, batch, cfg, cache)
             ref = ref[0, -1].float()
-            got = pre[i][2][0].cpu()
+            got = pre[j][2][0].cpu()
             d = float((got - ref).abs().max())
             top_ref, top_got = int(ref.argmax()), int(got.argmax())
             margin = float(ref[top_ref] - ref[top_got])
@@ -1679,93 +1978,234 @@ def serve_lm(kernels, card):
                   f"{label}: top-1 differs from the CPU's at margin "
                   f"{margin:.4g}")
             d_cpu.append(d)
-        print(f"[lm] {label}: CPU plain forwards {time.perf_counter() - t0:.1f}s",
-              flush=True)
+        del cpu_tree
+        if n_cpu:
+            print(f"[lm] {label}: CPU plain forwards "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-        # the greedy tokens against the plain attention, on the card
-        plain_eng = make()
-        orig = ops._flash_kernel
-        ops._flash_kernel = fa.flash_attention_plain
-        try:
-            fa.KERNEL.launches = 0
-            with LMRecorder(plain_eng) as rec_plain:
-                plain_reqs = plain_eng.run(lm_requests(cfg))
-        finally:
-            ops._flash_kernel = orig
-        check(fa.KERNEL.launches == 0, f"{label}: the substituted run "
-              "launched the flash kernel")
+        # the logits and greedy tokens against the plain versions
+        substituted = ["flash_attention"] + ([linear] if linear else [])
+        rec_plain, plain_reqs = substituted_run(
+            make, requests, kernels, plain_versions(substituted),
+            substituted, label, snapshot=witnessed)
         pre_d, dec_d, n_tok, margins = compare_runs(rec_plain.calls,
                                                     rec.calls)
-        worst = max(pre_d + [dec_d])
         same = sum(a == b for r, pr in zip(reqs, plain_reqs)
                    for a, b in zip(r.tokens_out, pr.tokens_out))
         streams_equal = all(r.tokens_out == pr.tokens_out
                             for r, pr in zip(reqs, plain_reqs))
         std = float(torch.stack([c[2][0] for c in pre]).std())
-        print(f"[lm] {label}: served tokens vs plain attention on the card: "
-              f"streams_equal={streams_equal}, {same} of "
-              f"{len(reqs) * LM_NEW} tokens equal; {n_tok} compared before "
-              f"any decode step parted; prefill max|dlogit| by prompt "
-              f"{dict(zip(LM_PROMPTS, (round(d, 4) for d in pre_d)))}, "
+        print(f"[lm] {label}: served tokens vs the plain "
+              f"{' and '.join(substituted)} on the card: streams_equal="
+              f"{streams_equal}, {same} of {len(reqs) * new} tokens equal; "
+              f"{n_tok} compared before any decode step parted; prefill "
+              f"max|dlogit| by prompt "
+              f"{dict(zip(prompts, (round(d, 4) for d in pre_d)))}, "
               f"decode {dec_d:.4g} (logit std {std:.3f}); margins where "
               f"parted {margins}", flush=True)
-        check(worst <= LM_LOGIT_BOUND, f"{label}: kernel run off the plain "
-              f"run by {worst:.4g}")
+        dec_bound = LM_DECODE_BOUNDS.get(label, LM_LOGIT_BOUND)
+        check(max(pre_d) <= LM_LOGIT_BOUND and dec_d <= dec_bound,
+              f"{label}: kernel run off the plain run by {max(pre_d):.4g} "
+              f"(prefill), {dec_d:.4g} (decode)")
         check(all(m <= 2 * LM_LOGIT_BOUND for m in margins),
               f"{label}: a token parted at margin {max(margins, default=0)}")
         check(streams_equal or margins, f"{label}: streams differ though "
               "no compared step parted")
 
-        prof = profile_lm(make, cfg, label)
-        plain_product = None
+        bucketed = (bucketed_against_unpadded(tree, cfg, reqs, label)
+                    if mode == "dense" else None)
+        prof = profile_lm(make, requests, label)
+        plain_linear = witnesses = None
+        if linear:
+            plain_linear = compare_plain_linear(make, requests, kernels,
+                                                linear, label, rec, reqs,
+                                                profiled=mode == "int8")
         if mode == "int8":
             check(prof is None or prof["f64_gemm_ms"] == 0.0,
                   f"{label}: the profile still shows a float64 GEMM")
-            plain_product = compare_plain_product(make, cfg, label, rec,
-                                                  reqs)
+        if witnessed:
+            witnesses = decode_witnesses(make, requests, kernels,
+                                         substituted, cfg, prompts, label,
+                                         dec_bound, rec, rec_plain)
+        del rec_plain
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[lm] {label}: peak device memory {gib(peak)} (init "
+              f"{gib(init_peak)}) of "
+              f"{gib(torch.cuda.get_device_properties(0).total_memory)}",
+              flush=True)
         results[label] = dict(
             counts=counts, forwards=n_fwd, wall_s=wall,
             prefill_tok_s=pre_tok / pre_s, prefill_ms=pre_s * 1e3,
             decode_tok_s=dec_tok / dec_s, decode_ms=dec_s * 1e3,
             decode_steps=len(dec), cpu_max_dlogit=d_cpu,
-            plain_attention=dict(streams_equal=streams_equal,
-                                 tokens_equal=same, prefill_max_dlogit=pre_d,
-                                 decode_max_dlogit=dec_d, logit_std=std,
-                                 margins=margins),
-            profile=prof, plain_product=plain_product)
+            plain=dict(kernels=substituted, streams_equal=streams_equal,
+                       tokens_equal=same, prefill_max_dlogit=pre_d,
+                       decode_max_dlogit=dec_d, decode_bound=dec_bound,
+                       logit_std=std, margins=margins),
+            bucketed_vs_unpadded=bucketed, profile=prof,
+            plain_linear=plain_linear, decode_witnesses=witnesses,
+            peak_bytes=peak, init_peak_bytes=init_peak)
+        del eng, rec, tree, make
+        torch.cuda.empty_cache()
     return results
 
 
-def compare_plain_product(make, cfg, label, rec, reqs):
-    """The int8 run again with ``cfmm_matmul``'s plain version (the
-    float64 product and its casts) substituted: the int32 sums are the
-    same, so the logits and tokens should be; and its profile, the path
-    as it ran before the kernel took it."""
-    from repro_torch.kernels import cfmm_matmul, ops
-    orig = ops._cfmm_kernel
-    ops._cfmm_kernel = cfmm_matmul.cfmm_matmul_plain
-    try:
-        cfmm_matmul.KERNEL.launches = 0
-        plain_eng = make()
-        with LMRecorder(plain_eng) as rec_plain:
-            plain_reqs = plain_eng.run(lm_requests(cfg))
-        prof = profile_lm(make, cfg, f"{label} with the plain int8 product")
-    finally:
-        ops._cfmm_kernel = orig
-    check(cfmm_matmul.KERNEL.launches == 0, f"{label}: the substituted run "
-          "launched the cfmm kernel")
-    pre_d, dec_d, n_tok, margins = compare_runs(rec_plain.calls, rec.calls)
+def substituted_run(make, requests, kernels, subs, names, label,
+                    slots=LM_SLOTS, snapshot=False):
+    """One engine run of ``requests()`` inside the substitution ``subs``
+    (a context manager), checking that none of the kernels ``names`` it
+    replaces launched.  Returns (recorder, requests)."""
+    for name in names:
+        kernels[name].launches = 0
+    eng = make(slots)
+    with subs, LMRecorder(eng, snapshot) as rec:
+        out = eng.run(requests())
+    check(all(kernels[name].launches == 0 for name in names),
+          f"{label}: the substituted run launched {names}")
+    return rec, out
+
+
+def compare_plain_linear(make, requests, kernels, linear, label, rec, reqs,
+                         profiled):
+    """The run again with only the linears' kernel replaced by its plain
+    version (the float64 product and its casts): the int32 sums are the
+    same, so every logit and token must be too.  With ``profiled``, that
+    run's profile: the path as it ran before the kernel took it."""
+    rec_plain, plain_reqs = substituted_run(
+        make, requests, kernels, plain_versions([linear]), [linear], label)
+    prof = None
+    if profiled:
+        with plain_versions([linear]):
+            prof = profile_lm(make, requests,
+                              f"{label} with the plain {linear}")
+    pre_d, dec_d, n_tok, _ = compare_runs(rec_plain.calls, rec.calls)
     streams_equal = all(r.tokens_out == pr.tokens_out
                         for r, pr in zip(reqs, plain_reqs))
-    worst = max(pre_d + [dec_d])
-    print(f"[lm] {label}: vs the plain int8 product on the card: "
+    print(f"[lm] {label}: vs the plain {linear} on the card: "
           f"streams_equal={streams_equal}; max|dlogit| prefill "
           f"{max(pre_d):.4g}, decode {dec_d:.4g} over {n_tok} tokens",
           flush=True)
-    check(worst <= LM_LOGIT_BOUND, f"{label}: kernel run off the "
-          f"plain-product run by {worst:.4g}")
+    check(streams_equal and max(pre_d + [dec_d]) == 0.0,
+          f"{label}: the {linear} kernel's run differs from the plain "
+          f"product's by {max(pre_d + [dec_d]):.4g}")
     return dict(streams_equal=streams_equal, prefill_max_dlogit=max(pre_d),
                 decode_max_dlogit=dec_d, profile=prof)
+
+
+def first_decode_rows(calls_a, calls_b):
+    """max |dlogit| of each active row at the first decode step, whether
+    or not a token parted before it."""
+    a, b = (next(c for c in calls if c[0] == "decode")
+            for calls in (calls_a, calls_b))
+    return [float((a[2][r] - b[2][r]).abs().max()) for r in a[1]]
+
+
+def decode_witnesses(make, requests, kernels, substituted, cfg, prompts,
+                     label, bound, kern, plain):
+    """Where the decode spread of an ``LM_DECODE_BOUNDS`` path comes from,
+    on the card, each reading beside the kernel-vs-plain one (``kern``
+    and ``plain``: the two runs' recorders, with their snapshots):
+
+    - the first decode step with the plain versions, on the kernel run's
+      cache and tokens, equals the kernel run's step (the step itself is
+      exact; the spread comes in with the caches);
+    - the kernel run's cache with only the pad rows of the plain run's
+      (positions L to the bucket of each slot's prompt) swapped in: how
+      far that alone moves the step;
+    - one slot (each request alone; no slot attends to another's
+      length): kernel against plain, held to ``LM_LOGIT_BOUND``;
+    - a per-row activation scale in both runs (slots no longer share a
+      scale);
+    - a third attention, one SDPA call, against each run;
+    - a planted fault, the attention losing one 64-key tile, which the
+      bound must fail."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import _bucket_len
+    subs = lambda **attn: plain_versions(substituted, **attn)
+    healthy = first_decode_rows(plain.calls, kern.calls)
+    (batch, cache_k), (_, cache_p) = kern.snapshot, plain.snapshot
+    first_k = next(c for c in kern.calls if c[0] == "decode")[2]
+    with subs():
+        teacher, _ = lm.forward_decode(kern.engine.params, batch, cfg,
+                                       _clone_tree(cache_k))
+    teacher = float((teacher[:, -1].float() - first_k).abs().max())
+    for path, leaf_k in _kv_leaves(cache_k):
+        leaf_p = dict(_kv_leaves(cache_p))[path]
+        for slot, L in enumerate(prompts):
+            end = _bucket_len(L, LM_MAX_SEQ)
+            leaf_k[:, slot, L:end] = leaf_p[:, slot, L:end]
+    swapped, _ = lm.forward_decode(kern.engine.params, batch, cfg, cache_k)
+    swapped = float((swapped[:, -1].float() - first_k).abs().max())
+    del kern.snapshot, plain.snapshot, cache_k, cache_p
+    one_k, _ = substituted_run(make, requests, kernels,
+                               contextlib.nullcontext(), [], label, slots=1)
+    one_p, _ = substituted_run(make, requests, kernels, subs(), substituted,
+                               label, slots=1)
+    one_pre, one_dec, _, _ = compare_runs(one_p.calls, one_k.calls)
+    with per_row_scales():
+        row_k, _ = substituted_run(make, requests, kernels,
+                                   contextlib.nullcontext(), [], label)
+        row_p, _ = substituted_run(make, requests, kernels, subs(),
+                                   substituted, label)
+    sdpa, _ = substituted_run(make, requests, kernels,
+                              subs(attention=sdpa_attention), substituted,
+                              label)
+    lost, _ = substituted_run(make, requests, kernels,
+                              subs(attention=lost_tile_attention),
+                              substituted, label)
+    lost_pre, _, _, _ = compare_runs(plain.calls, lost.calls)
+    out = dict(
+        kernel_vs_plain=healthy, teacher_forced=teacher,
+        pad_rows_swapped=swapped,
+        one_slot=dict(prefill=max(one_pre), decode=one_dec),
+        per_row_scale=first_decode_rows(row_p.calls, row_k.calls),
+        sdpa_vs_kernel=first_decode_rows(kern.calls, sdpa.calls),
+        sdpa_vs_plain=first_decode_rows(plain.calls, sdpa.calls),
+        lost_tile=dict(prefill=max(lost_pre),
+                       decode=first_decode_rows(plain.calls, lost.calls)))
+    r4 = lambda xs: [round(x, 4) for x in xs]
+    print(f"[lm] {label}: decode witnesses, max|dlogit| of the first "
+          f"decode step by slot (prompts {list(prompts)}): kernel vs plain "
+          f"{r4(healthy)}; plain step on the kernel's cache {teacher:.4g}; "
+          f"the plain run's pad rows swapped into the kernel's cache "
+          f"{swapped:.4g}; one slot: prefill {max(one_pre):.4g}, decode "
+          f"{one_dec:.4g}; per-row activation scale "
+          f"{r4(out['per_row_scale'])}; SDPA vs kernel "
+          f"{r4(out['sdpa_vs_kernel'])}, vs plain "
+          f"{r4(out['sdpa_vs_plain'])}; planted lost tile: prefill "
+          f"{max(lost_pre):.4g}, decode {r4(out['lost_tile']['decode'])}; "
+          f"bound {bound}", flush=True)
+    check(teacher == 0.0, f"{label}: the plain decode step on the kernel's "
+          f"cache differs by {teacher:.4g}")
+    check(max(one_pre + [one_dec]) <= LM_LOGIT_BOUND,
+          f"{label}: one slot, kernel off plain by "
+          f"{max(one_pre + [one_dec]):.4g}")
+    check(max(out["lost_tile"]["decode"]) > bound
+          and max(lost_pre) > LM_LOGIT_BOUND,
+          f"{label}: the planted lost tile passes the bounds: {out}")
+    return out
+
+
+def _clone_tree(t):
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_clone_tree(v) for v in t]
+    return t.clone() if isinstance(t, torch.Tensor) else t
+
+
+def _kv_leaves(cache, path=""):
+    """(path, leaf) of every K/V cache leaf, as (layers, slots, S, KVH, D):
+    a prefix or suffix layer's (slots, S, KVH, D) leaf gets a view with a
+    leading layer axis of 1."""
+    if isinstance(cache, dict):
+        for k, v in cache.items():
+            yield from _kv_leaves(v, f"{path}/{k}")
+    elif isinstance(cache, list):
+        for i, v in enumerate(cache):
+            yield from _kv_leaves(v, f"{path}[{i}]")
+    elif isinstance(cache, torch.Tensor) and cache.ndim >= 4:
+        yield path, cache if cache.ndim == 5 else cache[None]
 
 
 def main() -> int:
@@ -1822,6 +2262,8 @@ def main() -> int:
     rows["flash_attention"] = [check_flash(sp, dt, dev, gen)
                                for dt in (torch.bfloat16, torch.float32)
                                for sp in FLASH_SHAPES]
+    rows["flash_attention"] += [check_flash(sp, torch.bfloat16, dev, gen)
+                                for sp in LM_FLASH_SHAPES]
     rows["conv_depthwise"] = [check_depthwise(*s, dev, gen)
                               for s in DW_SHAPES]
     for shape, g in DW_ZERO_COUNTS:
@@ -1845,7 +2287,15 @@ def main() -> int:
     fleet = fleet_phase(kernels, card, trees, serve_images)
     print(f"[time] fleet phase done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
-    lm_served = serve_lm(kernels, card)
+    dense_cnn = dense_cnn_phase(kernels, card, trees, serve_images)
+    del trees
+    print(f"[time] dense CNN phase done at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    lm_served = {}
+    for path in LM_PATHS:
+        lm_served.update(serve_lm(kernels, card, *path))
+        print(f"[time] LM {path[0]} done at "
+              f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     meta = {
         "conv_implicit": ("src/repro_torch/csrc/conv_implicit.cu",
@@ -1922,6 +2372,7 @@ def main() -> int:
                   for (m, mode, n), v in served.items()]
     print(json.dumps({"serve": serve_line, "floor": floor}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"dense_cnn": dense_cnn}), flush=True)
     print(json.dumps({"lm_serve": lm_served}), flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"[card] {card}", flush=True)

@@ -141,9 +141,9 @@ class ArchConfig:
         return dataclasses.replace(self, **changes)
 
 
-# the LM configs the port has; the JAX package's other nine wait for the
-# modules they need (MoE, SSM, MLA, encoder-decoder: ROADMAP A8)
-ARCH_IDS = ("smollm_360m",)
+# the LM configs the port has; the JAX package's other six wait for the
+# modules they need (MoE, SSM, MLA, M-RoPE, encoder-decoder: ROADMAP A8)
+ARCH_IDS = ("smollm_360m", "gemma3_1b", "stablelm_3b", "phi3_medium_14b")
 
 
 def get_config(name: str) -> ArchConfig:

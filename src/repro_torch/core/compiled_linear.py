@@ -11,6 +11,8 @@ Per serve mode a compiled weight leaf is:
                K pads up to a multiple of 8 with masked all-zero rows
   bitserial    {'bs_codes': int8, 'scale'}  the head is the bit-plane
                matmul (core/cfmm.py ``bitserial_matmul``)
+  dense        the float leaf itself, not compiled: ``x @ W`` in x's
+               dtype (the float reference the other modes are held to)
 
 Every conv leaf is stored in the conv kernels' spatial-major tap layout
 (row = tap*c_in + c) and carries its ``ConvGeom``; the layout permute
@@ -20,8 +22,7 @@ Depthwise leaves store dense tap-major ``(k*k, C)`` int8 ``values`` plus
 a per-channel scale in every serve mode (K = k*k rows: a bitmap saves
 nothing there).  Stacked leaves ``(layers, K, N)`` compile slice by
 slice into stacked compiled leaves.  The bytes are equal to the JAX
-package's for the same float weights (tested).  The ``dense`` mode needs the dense training
-forward, which is not ported: it raises.
+package's for the same float weights (tested).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.bitmap import expand_bitmap_tile
 
-SERVE_MODES = ("int8", "cfmm", "sparse_cfmm", "bitserial")
+SERVE_MODES = ("dense", "int8", "cfmm", "sparse_cfmm", "bitserial")
 
 
 def act_quant(x: torch.Tensor, *, per_row: bool = False):
@@ -129,9 +130,18 @@ def pad_rows8(codes: torch.Tensor) -> torch.Tensor:
 # Forward
 # ---------------------------------------------------------------------------
 
-def apply_linear(w: dict, x: torch.Tensor,
+def apply_linear(w, x: torch.Tensor, qat: bool = False,
                  per_row: bool = False) -> torch.Tensor:
-    """y = x @ W for a compiled weight leaf.  Preserves x.dtype.
+    """y = x @ W for any compiled or dense weight leaf.  Preserves
+    x.dtype.
+
+    A dense leaf (a tensor, or a ``Param`` holding one) is the plain
+    product ``x @ W`` with W cast to x's dtype on each call, as the JAX
+    package computes it (a ``jnp.matmul`` outside any kernel): no
+    activation quantization, and no second copy of the weights kept in
+    x's dtype.  ``qat=True`` (fake-quantized INT7 weights under a
+    straight-through gradient) comes with the training slice (ROADMAP A8
+    step 6) and raises.
 
     ``x`` is ``(..., K)`` in any float type (the LM feeds bf16
     ``(B, T, d)``): the leading axes flatten into the rows of one
@@ -146,6 +156,15 @@ def apply_linear(w: dict, x: torch.Tensor,
     CPU, and the bit-serial product everywhere, sum in float64
     (kernels/ref.py).
     """
+    if qat:
+        raise NotImplementedError(
+            "apply_linear(qat=True) is not ported: fake_quant_int7 and its "
+            "straight-through gradient come with training (ROADMAP A8 "
+            "step 6)")
+    if isinstance(w, nn.Param):
+        w = w.value
+    if not isinstance(w, dict):                    # dense
+        return torch.matmul(x, w.to(x.dtype))
     assert "geom" not in w, "compiled conv leaf: use apply_conv"
     lead = tuple(x.shape[:-1])
     x_q, s_x = act_quant(x.reshape(-1, x.shape[-1]), per_row=per_row)
@@ -263,11 +282,12 @@ def compile_params(params, mode: str = "sparse_cfmm", sparsity: float = 0.8):
 
     Only linear- and conv-kind leaves are packed; norms and biases stay
     as they are.  Compiled conv leaves gain a static ``geom`` entry.
+    ``dense`` returns ``params`` as they are.
     """
     if mode not in SERVE_MODES:
-        raise NotImplementedError(
-            f"serve mode {mode!r} is not ported (the dense mode needs the "
-            f"dense training forward); the port compiles {SERVE_MODES}")
+        raise ValueError(f"serve mode {mode!r}: the port has {SERVE_MODES}")
+    if mode == "dense":
+        return params
 
     def visit(p):
         if isinstance(p, nn.Param) and nn.compilable(p.kind) \

@@ -3,6 +3,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \\
       --preset full --mode sparse_cfmm --requests 6 --prompt-len 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --preset tiny --mode dense --arch gemma3_1b
 
 Initialises seeded random weights (on the device), compiles them in the
 chosen serve mode and serves ``--requests`` random prompts through
@@ -18,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MLAConfig, get_config
+from repro_torch.configs.base import ARCH_IDS, MLAConfig, get_config
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import lm
 from repro_torch.serving.engine import Request, ServingEngine
@@ -60,10 +62,10 @@ def build_cfg(arch: str, preset: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm_360m")
+    ap.add_argument("--arch", default="smollm_360m", choices=ARCH_IDS)
     ap.add_argument("--preset", default="tiny", choices=list(PRESETS))
     ap.add_argument("--mode", default="int8",
-                    choices=("int8", "cfmm", "sparse_cfmm"))
+                    choices=("dense", "int8", "cfmm", "sparse_cfmm"))
     ap.add_argument("--sparsity", type=float, default=0.8)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -7,10 +7,11 @@ leading ``layers`` axis, so the two packages' trees match leaf for leaf.
 JAX scans the template (with remat); the port runs it as a Python loop
 over that axis, on views of the stacked tensors.
 
-Ported: dense GQA stacks (SmolLM, StableLM, Phi-3), sliding-window
-layers, prefill (with the serving engine's bucketed ``length`` path) and
-decode.  MoE, Mamba, RWKV, MLA, the encoder-decoder and
-``forward_train`` raise ``NotImplementedError`` (ROADMAP A8).
+Ported: dense GQA stacks (SmolLM, Gemma3, StableLM, Phi-3), sliding-window
+layers, the full forward (``forward_train`` without QAT or remat),
+prefill (with the serving engine's bucketed ``length`` path) and decode,
+on compiled or dense (float) weight leaves.  MoE, Mamba, RWKV, MLA, the
+encoder-decoder and QAT raise ``NotImplementedError`` (ROADMAP A8).
 
 Cache counters (``length``, ``pos``) live on the host; ``k``/``v`` live
 with the parameters and are written in place (models/attention.py).
@@ -284,7 +285,23 @@ def _embed_tokens(params, tokens, cfg):
 
 
 def forward_train(params, batch, cfg: ArchConfig, qat=False):
-    raise NotImplementedError(f"forward_train {_A8}")
+    """-> (logits, aux): every position's logits, no cache.  ``aux`` is
+    a dense stack's zero MoE aux, as the JAX package gives it.  JAX
+    rematerialises the scanned layers for the backward pass; the port has
+    no backward yet, so it runs them as they are.  ``qat=True`` comes
+    with training (ROADMAP A8 step 6)."""
+    if qat:
+        raise NotImplementedError("forward_train(qat=True) is not ported: "
+                                  "QAT comes with training (ROADMAP A8 "
+                                  "step 6)")
+    if cfg.encoder_decoder:
+        raise NotImplementedError(f"the encoder-decoder {_A8}")
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    x = _embed_tokens(params, tokens, cfg)
+    positions = _positions(cfg, batch, B, T).to(x.device)
+    x, _, aux = _run_stack(params, x, cfg, _grouping_info(cfg), positions)
+    return _logits(params, x, cfg), aux
 
 
 def forward_prefill(params, batch, cfg: ArchConfig, cache):

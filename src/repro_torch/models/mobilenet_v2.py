@@ -13,8 +13,9 @@ Block structure (t = expansion, Table 2 of the MobileNetV2 paper):
 expand 1x1 (skipped when t == 1) -> depthwise 3x3 (stride) -> project
 1x1 (linear), with the identity shortcut riding the project conv's
 Collector whenever stride == 1 and c_in == c_out.  As in the JAX package,
-plain ReLU stands in for ReLU6.  The dense training forward is not
-ported: ``apply`` runs compiled parameters only.
+plain ReLU stands in for ReLU6.  ``apply`` on an unboxed float tree runs
+the dense reference forward (resnet's ``_conv_apply`` for the dense
+convs, ``_dw_apply`` for the depthwise ones).
 """
 from __future__ import annotations
 
@@ -23,8 +24,10 @@ import dataclasses
 import torch
 
 from repro_torch import nn
+from repro_torch.core.compiled_linear import apply_linear
+from repro_torch.kernels.ref import _shift_slice, pad_same_nhwc
 from repro_torch.models.graph import Graph, Node, apply_graph
-from repro_torch.models.resnet import _conv_init
+from repro_torch.models.resnet import _conv_apply, _conv_init
 
 # (expansion t, out channels c, repeats n, first stride s) — Table 2.
 MOBILENET_V2_BLOCKS = [
@@ -78,6 +81,22 @@ def _dw_init(gen, c, k, stride):
         "scale": nn.param(gen, (c,), ("conv_out",), init="ones"),
         "bias": nn.param(gen, (c,), ("conv_out",), init="zeros"),
     }
+
+
+def _dw_apply(p, x, k, stride, relu=True):
+    """Dense-path depthwise conv over the tap-major ``(k*k, C)`` weight
+    + separate Collector ops: the float reference of the compiled
+    depthwise kernel.  The JAX package runs XLA's grouped conv here; the
+    port sums the k*k SAME-shifted slices times their taps in plain
+    torch (no cuDNN, so no TF32 on the card)."""
+    w = p["w"].value if isinstance(p["w"], nn.Param) else p["w"]
+    xp, h_out, w_out = pad_same_nhwc(x, k, stride)
+    y = None
+    for t in range(k * k):
+        tap = _shift_slice(xp, t // k, t % k, h_out, w_out, stride) * w[t]
+        y = tap if y is None else y + tap
+    y = y * p["scale"] + p["bias"]
+    return torch.relu(y) if relu else y
 
 
 def init(gen: torch.Generator, cfg: MobileNetV2Config):
@@ -145,9 +164,19 @@ def mobilenet_v2_graph(cfg: MobileNetV2Config) -> Graph:
 
 
 def apply(params, x: torch.Tensor, cfg: MobileNetV2Config) -> torch.Tensor:
-    """x: (B, H, W, 3) f32 -> logits (B, num_classes), compiled params
-    (``compiled_linear.ensure_compiled``) on x's device."""
-    if not isinstance(params["stem"]["w"], dict):
-        raise NotImplementedError("the dense training forward is not "
-                                  "ported; compile the params first")
-    return apply_graph(mobilenet_v2_graph(cfg), params, x)
+    """x: (B, H, W, 3) f32 -> logits (B, num_classes) on x's device.
+    Compiled params (``compiled_linear.ensure_compiled``) run the graph;
+    an unboxed float tree runs the dense reference forward."""
+    if isinstance(params["stem"]["w"], dict):      # compiled constant params
+        return apply_graph(mobilenet_v2_graph(cfg), params, x)
+    h = _conv_apply(params["stem"], x, 3, stride=2)
+    for p, (t, c_in, c_mid, c_out, stride) in zip(params["blocks"],
+                                                  block_specs(cfg)):
+        h0 = h
+        y = _conv_apply(p["ex"], h, 1) if "ex" in p else h
+        y = _dw_apply(p["dw"], y, 3, stride)
+        y = _conv_apply(p["pj"], y, 1, relu=False)
+        h = y + h0 if (stride == 1 and c_in == c_out) else y
+    h = _conv_apply(params["tail"], h, 1)
+    pooled = torch.mean(h, dim=(1, 2))
+    return apply_linear(params["head"]["w"], pooled)

@@ -14,8 +14,11 @@ The fold is f32 elementwise algebra done op by op, as the JAX package
 does it eagerly, so the fused tree is byte-equal to the JAX package's.
 As there, the 1x1 branch of a stride-2 block is DEFINED as its
 center-tap embedding.  The fused network is a sequential chain of 3x3
-quant-out convs, served through the compiled graph; the dense forwards
-(fused and unfused) are not ported.
+quant-out convs, served through the compiled graph.  ``apply`` on an
+unboxed float tree runs a dense reference forward: the fused 3x3 chain,
+or the unfused three branches (3x3, the 1x1 as its centre-tap 3x3
+embedding, the identity's scale and bias), so the fold can be held
+against the branches it replaces.
 """
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ import dataclasses
 import torch
 
 from repro_torch import nn
+from repro_torch.core.compiled_linear import apply_linear
 from repro_torch.models.graph import Graph, Node, apply_graph
-from repro_torch.models.resnet import _conv_init
+from repro_torch.models.resnet import _conv_apply, _conv_init
 
 # (out channels, blocks) per stage — RepVGG-A0; the first block of every
 # stage has stride 2 (input stage included: 224 -> 112 at the stem block).
@@ -149,10 +153,28 @@ def repvgg_graph(cfg: RepVGGConfig) -> Graph:
 
 
 def apply(params, x: torch.Tensor, cfg: RepVGGConfig) -> torch.Tensor:
-    """x: (B, H, W, 3) f32 -> logits (B, num_classes) for compiled FUSED
-    params (``fuse_params`` then ``compiled_linear.ensure_compiled``)."""
+    """x: (B, H, W, 3) f32 -> logits (B, num_classes) on x's device.
+
+    Compiled fused params (``fuse_params`` then
+    ``compiled_linear.ensure_compiled``) run the graph; unboxed dense
+    fused params run the plain 3x3 chain; unboxed dense UNFUSED params
+    run the three-branch reference."""
     blk0 = params["blocks"][0]
-    if "conv3" in blk0 or not isinstance(blk0["w"], dict):
-        raise NotImplementedError("the dense forwards are not ported; fuse "
-                                  "and compile the params first")
-    return apply_graph(repvgg_graph(cfg), params, x)
+    if "conv3" not in blk0 and isinstance(blk0["w"], dict):
+        return apply_graph(repvgg_graph(cfg), params, x)     # compiled fused
+    h = x
+    for p, (name, c_in, c_out, stride, ident) in zip(params["blocks"],
+                                                     block_specs(cfg)):
+        if "conv3" in p:                                     # unfused
+            y = _conv_apply(p["conv3"], h, 3, stride, relu=False)
+            # the 1x1 branch is DEFINED as its centre-tap 3x3 embedding
+            w1 = {"w": embed_1x1(_val(p["conv1"]["w"]), c_in),
+                  "scale": p["conv1"]["scale"], "bias": p["conv1"]["bias"]}
+            y = y + _conv_apply(w1, h, 3, stride, relu=False)
+            if ident:
+                y = y + (h * p["id"]["scale"] + p["id"]["bias"])
+            h = torch.relu(y)
+        else:                                                # fused dense
+            h = _conv_apply(p, h, 3, stride)
+    pooled = torch.mean(h, dim=(1, 2))
+    return apply_linear(params["head"]["w"], pooled)

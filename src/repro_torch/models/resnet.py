@@ -13,18 +13,24 @@ epilogue, classifier head.  ``graph.compile_graph`` cuts it into pipeline
 units with producer-side per-row int8 quantization on every unit edge.
 Weights are constant int8 codes (dense or bitmap-packed) in the kernels'
 spatial-major tap layout carrying their geometry; each conv is ONE fused
-kernel launch.  The dense training forward is not ported: ``apply`` runs
-compiled parameters only.
+kernel launch.  ``apply`` on an unboxed float tree runs the dense
+reference forward instead (``_conv_apply``: im2col and one
+``torch.matmul`` per conv, the Collector as separate ops), the float
+baseline the compiled path is held to.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.core.compiled_linear import apply_linear
 from repro_torch.core.fpga_model import ConvLayerSpec
-from repro_torch.models.graph import Graph, Node, apply_graph
+from repro_torch.kernels.ref import pad_same_nhwc
+from repro_torch.models.graph import (Graph, Node, _max_pool_same,
+                                      apply_graph)
 
 # (blocks, mid_channels, out_channels, feature hw) per stage — Table I.
 RESNET50_STAGES = [
@@ -126,6 +132,28 @@ def _conv_init(gen, c_in, c_out, k, stride=1):
     }
 
 
+def _conv_apply(p, x, k, stride=1, relu=True, shortcut=None):
+    """Dense path: im2col conv + separate Collector ops (scale, bias,
+    shortcut, ReLU), the float reference the fused compiled path is held
+    to.  A patch's features are channel-major (c_in slowest, then kh,
+    kw): the dense weight's row order, and the order
+    ``jax.lax.conv_general_dilated_patches`` gives.  ``F.unfold`` on
+    NCHW gives that order; the SAME padding (more at the end for stride
+    2) is explicit, so the unfold pads nothing."""
+    if k > 1:
+        xp, h_out, w_out = pad_same_nhwc(x, k, stride)
+        cols = F.unfold(xp.permute(0, 3, 1, 2), k, stride=stride)
+        patches = cols.transpose(1, 2).reshape(x.shape[0], h_out, w_out,
+                                               cols.shape[1])
+    else:
+        patches = x[:, ::stride, ::stride, :]
+    y = apply_linear(p["w"], patches)
+    y = y * p["scale"] + p["bias"]
+    if shortcut is not None:
+        y = y + shortcut
+    return torch.relu(y) if relu else y
+
+
 def _block_stride(name: str, b: int) -> int:
     return 2 if (b == 0 and name != "conv2_x") else 1
 
@@ -203,9 +231,21 @@ def resnet_graph(cfg: ResNetConfig) -> Graph:
 
 
 def apply(params, x: torch.Tensor, cfg: ResNetConfig) -> torch.Tensor:
-    """x: (B, H, W, 3) f32 -> logits (B, num_classes), compiled params
-    (``compiled_linear.ensure_compiled``) on x's device."""
-    if not isinstance(params["stem"]["w"], dict):
-        raise NotImplementedError("the dense training forward is not "
-                                  "ported; compile the params first")
-    return apply_graph(resnet_graph(cfg), params, x)
+    """x: (B, H, W, 3) f32 -> logits (B, num_classes) on x's device.
+    Compiled params (``compiled_linear.ensure_compiled``) run the graph;
+    an unboxed float tree runs the dense reference forward."""
+    if isinstance(params["stem"]["w"], dict):      # compiled constant params
+        return apply_graph(resnet_graph(cfg), params, x)
+    h = _conv_apply(params["stem"], x, 7, stride=2)
+    h = _max_pool_same(h, 3, 2)
+    for i in range(4):
+        name = cfg.stage(i)[0]
+        for b, blk in enumerate(params[name]):
+            stride = _block_stride(name, b)
+            sc = (_conv_apply(blk["sc"], h, 1, stride, relu=False)
+                  if "sc" in blk else h)
+            y = _conv_apply(blk["a"], h, 1, stride)
+            y = _conv_apply(blk["b"], y, 3)
+            h = _conv_apply(blk["c"], y, 1, relu=True, shortcut=sc)
+    pooled = torch.mean(h, dim=(1, 2))
+    return apply_linear(params["head"]["w"], pooled)

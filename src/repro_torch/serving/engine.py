@@ -14,6 +14,10 @@ what the prefill computes (end-padded prompts, pad rows masked later).
 The slot merge writes the prefilled cache into the shared decode cache
 in place.
 
+``mode="dense"`` serves the unboxed float tree as it is (each linear a
+``torch.matmul`` in bf16, the weights cast per call); there the bucketed
+prefill is exact, as nothing couples a row to the pad rows.
+
 The engine runs on the card by default (``device="cuda"``) and raises
 when CUDA is absent unless the caller passes ``device="cpu"``.
 """
@@ -179,5 +183,9 @@ def _merge_slot_cache(batch_cache, one_cache, slot: int):
         return full
     if one.ndim == 1:                          # stacked scalar counters
         return torch.maximum(full, one)
-    full[:, slot:slot + 1] = one.to(full.dtype)   # stacked-layer leaf
+    # stacked-layer leaf, or a batch-leading one when there is one slot
+    # (dims 0 agree): JAX's dynamic_update_slice one axis in, whose start
+    # is clamped so that the row fits
+    start = min(slot, full.shape[1] - one.shape[1])
+    full[:, start:start + one.shape[1]] = one.to(full.dtype)
     return full

@@ -117,8 +117,15 @@ def test_ensure_compiled_passes_compiled_tree_through(jax_tree):
 
 @pytest.mark.parametrize("mode", ["dense"])
 def test_unported_modes_raise(jax_tree, mode):
-    with pytest.raises(NotImplementedError):
-        tcl.compile_params(tnn.params_from_numpy(jax_tree), mode=mode)
+    """Every serve mode of the JAX package is ported: ``dense`` (which
+    raised before it was) returns the tree as it is, as JAX's does; a
+    mode neither package has raises."""
+    tree = tnn.params_from_numpy(jax_tree)
+    assert tcl.compile_params(tree, mode=mode) is tree
+    assert jcl.compile_params(jax_tree, mode=mode) is jax_tree
+    assert set(tcl.SERVE_MODES) == set(jcl.SERVE_MODES)
+    with pytest.raises(ValueError, match="serve mode"):
+        tcl.compile_params(tree, mode="fp4")
 
 
 @pytest.mark.parametrize("K,N,keep", [(16, 5, 8), (152, 7, 32), (64, 3, 64)])

@@ -42,7 +42,13 @@ shapes, in both variants, with and without a split over K; the block-sparse matm
 and 0 % of its blocks kept, ragged M and blocks that are no multiple of
 its tile, within ``BS_RTOL``/``BS_ATOL``; also at every split of a
 column's active blocks (``block_sparse.plan``) and every copy width,
-two calls and a CUDA-graph replay giving the same bits.
+two calls and a CUDA-graph replay giving the same bits.  The dense LM
+configs' served shapes: flash attention at StableLM-3B's, Gemma3-1B's
+(window 512 and none) and Phi-3-medium's prefill (T = 1024 and 1000),
+each through the variant the rule picks; ``cfmm_matmul`` at their
+linears and untied heads (decode slots and the largest bucket);
+``sparse_matvec`` at Gemma3-1B's linears; and one ``dense`` engine run
+at ``reduced()`` on the card against the same run on the CPU.
 """
 import pytest
 import torch
@@ -1127,3 +1133,120 @@ def test_block_sparse_graph_replay_equals_eager(dev, dtype):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, block_sparse.block_sparse_matmul(x, *args))
+
+
+# ---------------------------------------------------------------------------
+# The dense LM configs' served shapes (Gemma3-1B, StableLM-3B, Phi-3-medium)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("KVH,G,D,window,want_variant", [
+    (32, 1, 80, None, "fma"),        # StableLM-3B
+    (1, 4, 256, 512, "fma"),         # Gemma3-1B local layers
+    (1, 4, 256, None, "fma"),        # Gemma3-1B global layers
+    (10, 4, 128, None, "mma"),       # Phi-3-medium-14B
+])
+@pytest.mark.parametrize("T", [1024, 1000])
+def test_flash_attention_matches_plain_at_dense_lm_shapes(
+        dev, KVH, G, D, window, want_variant, T):
+    """Each new config's prefill attention in bf16 at the largest bucket
+    (and a ragged 1000), through the variant the rule picks."""
+    assert flash_attention.variant(torch.bfloat16, D, D) == want_variant
+    q, k, v = _flash_inputs(1, KVH, G, T, T, D, D, torch.bfloat16, dev,
+                            seed=KVH + D + T)
+    got = flash_attention.flash_attention(q, k, v, True, window)
+    want = flash_attention.flash_attention_plain(q, k, v, True, window)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = FLASH_TOL[torch.bfloat16] + want.float().abs() * 2.0 ** -7
+    assert bool(torch.isfinite(got).all()) and bool((err <= tol).all()), \
+        float(err.max())
+
+
+# (K, N) of every linear of the three configs, and the untied heads
+DENSE_LM_LINEARS = [
+    (1152, 1024), (1152, 256), (1024, 1152), (1152, 6912), (6912, 1152),
+    (2560, 2560), (2560, 6912), (6912, 2560), (2560, 50304),
+    (5120, 5120), (5120, 1280), (5120, 17920), (17920, 5120),
+    (5120, 100352)]
+
+
+@pytest.mark.parametrize("K,N", DENSE_LM_LINEARS)
+@pytest.mark.parametrize("M", [4, 1024])
+def test_cfmm_matmul_matches_plain_at_dense_lm_shapes(dev, M, K, N):
+    """The int8 mode's linears of Gemma3-1B, StableLM-3B and
+    Phi-3-medium-14B (and the two untied heads) at the decode slots and
+    the largest prefill bucket: the int32 product equal."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    codes = torch.randint(-63, 64, (K, N), generator=g, dtype=torch.int8)
+    x, codes = x.to(dev), codes.to(dev)
+    out = cfmm_matmul.cfmm_matmul(x, codes)
+    torch.cuda.synchronize()
+    assert torch.equal(out, cfmm_matmul.cfmm_matmul_plain(x, codes))
+
+
+@pytest.mark.parametrize("K,N", [(1152, 1024), (1152, 256), (1024, 1152),
+                                 (1152, 6912), (6912, 1152)])
+@pytest.mark.parametrize("M", [4, 64, 1024])
+def test_sparse_matvec_matches_plain_at_gemma3_shapes(dev, M, K, N):
+    """Gemma3-1B's linears in sparse_cfmm (K = 1024, 1152 and 6912)."""
+    g = torch.Generator().manual_seed(M + K + N)
+    packed = _compile_leaf_2d(torch.randn((K, N), generator=g),
+                              "sparse_cfmm", 0.8)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    x, bm, vals = (t.to(dev).contiguous() for t in
+                   (x, packed["bitmap"], packed["values"]))
+    got = sparse_matvec.sparse_matvec(x, bm, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.sparse_matvec_ref(x, bm, vals))
+
+
+@pytest.mark.parametrize("arch", ["gemma3_1b", "stablelm_3b",
+                                  "phi3_medium_14b"])
+def test_dense_engine_on_the_card_matches_the_cpu(dev, arch):
+    """One ``dense`` engine run at ``reduced()`` on the card (cuBLAS bf16
+    linears, the flash kernel) against the same run on the CPU (plain
+    versions): every prefill's logits within the CPU-vs-JAX ``dense``
+    bound of every config (tests/_torch_lm_parity.py: 0.06), and the
+    bucketed prefill (a 37-token prompt, bucket 64) on the card against
+    the unpadded one within the same bound."""
+    from repro_torch import nn
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = get_config(arch).reduced()
+    bound = 0.06
+    params = nn.unbox(lm.init(torch.Generator().manual_seed(0), cfg))
+    rng = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, cfg.vocab, (L,), generator=rng).tolist()
+               for L in (37, 13)]
+    logits = {}
+    for device in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params, mode="dense", batch_slots=2,
+                            max_seq=64, device=device)
+        seen, orig = [], lm.forward_prefill
+
+        def spy(*a, **kw):
+            out = orig(*a, **kw)
+            seen.append(out[0][0, -1].float().cpu())
+            return out
+        lm.forward_prefill = spy
+        try:
+            eng.run([Request(rid=i, prompt=p, max_new_tokens=3)
+                     for i, p in enumerate(prompts)])
+        finally:
+            lm.forward_prefill = orig
+        logits[device] = seen
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert float((a - b).abs().max()) <= bound
+    card = nn.to_device(params, dev)
+
+    def prefill(width):
+        cache = nn.unbox(lm.cache_init(cfg, 1, 64, device=dev))
+        toks = torch.zeros((1, width), dtype=torch.long)
+        toks[0, :37] = torch.tensor(prompts[0])
+        batch = {"tokens": toks.to(dev)}
+        if width != 37:
+            batch["length"] = torch.tensor([37], dtype=torch.int32)
+        return lm.forward_prefill(card, batch, cfg, cache)[0].float()
+    assert float((prefill(64) - prefill(37)).abs().max()) <= bound

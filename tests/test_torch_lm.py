@@ -23,7 +23,9 @@ Configs: ``smollm_360m.reduced()`` (4 layers, d 128, KVH 1, G 4) and
   where XLA's fusion puts it, the jnp flash lowering rounds its scores
   and ``p.v`` to bf16 where the port follows the Pallas kernel (f32),
   and one flipped int8 activation code moves a layer's output by a
-  step of its scale.  Measured: see ``LOGIT_BOUND``.
+  step of its scale.  Measured: see ``LOGIT_BOUND`` in
+tests/_torch_lm_parity.py, the harness these tests share with the
+other LM configs' files.
 """
 import dataclasses
 
@@ -33,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_lm_parity import (LOGIT_BOUND, compare_calls, flat_jax,
+                              flat_port, run_engines, to_np)
 from repro import nn as jnn
 from repro.configs import smollm_360m as jsm
 from repro.core import compiled_linear as jcl
@@ -48,10 +52,6 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.serving import engine as teng
 
-# max |dlogit| measured over every compared call below: 0.0352 with jax
-# 0.9.0 (the logits' standard deviation is about 0.2 at these sizes);
-# the bound leaves room for XLA versions that round bf16 elsewhere
-LOGIT_BOUND = 0.06
 # max |d ffn| measured: 0.0166 (outputs up to about 0.7)
 FFN_BOUND = 0.03
 CASES = [("reduced", "int8"), ("reduced", "sparse_cfmm"), ("tiny", "int8"),
@@ -109,33 +109,6 @@ def compiled(trees):
     return get
 
 
-def _flat_jax(tree):
-    leaves = jax.tree_util.tree_flatten_with_path(
-        tree, is_leaf=lambda x: isinstance(x, jnn.Param))[0]
-    return {jax.tree_util.keystr(p): v for p, v in leaves}
-
-
-def _flat_port(tree, path=""):
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flat_port(v, f"{path}['{k}']"))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(_flat_port(v, f"{path}[{i}]"))
-        return out
-    if isinstance(tree, (tcl.KDim, tcl.ConvGeom)):
-        return {}                 # JAX's markers are childless nodes
-    return {path: tree}
-
-
-def _np(x):
-    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
-        if getattr(x, "dtype", None) == jnp.bfloat16 else np.asarray(x)
-
-
 def test_configs_match_jax():
     for name in ("reduced", "tiny"):
         jcfg, tcfg = _configs(name)
@@ -150,7 +123,7 @@ def test_params_carry_stacked_layers_unchanged(trees):
     ``("layers", ...)`` axes and kinds; the port's own ``lm.init`` builds
     the same tree (paths, shapes, axes, kinds) from a generator."""
     jt, tt = trees["reduced"]
-    jf, tf = _flat_jax(jt), _flat_port(tt)
+    jf, tf = flat_jax(jt), flat_port(tt)
     assert jf.keys() == tf.keys()
     for k, jp in jf.items():
         tp = tf[k]
@@ -159,7 +132,7 @@ def test_params_carry_stacked_layers_unchanged(trees):
     q = tt["template"][0]["mixer"]["q"]
     assert q.axes == ("layers", "embed", "heads_q") and q.kind == "linear"
     assert tuple(q.value.shape) == (4, 128, 128)
-    own = _flat_port(tlm.init(torch.Generator().manual_seed(0),
+    own = flat_port(tlm.init(torch.Generator().manual_seed(0),
                               tsm.CONFIG.reduced()))
     assert own.keys() == tf.keys()
     for k, p in own.items():
@@ -175,7 +148,7 @@ def test_compiled_bytes_equal_jax(compiled, mode):
     stacked (layers, K, N) template leaves included — are the same
     bytes, under the same logical axes."""
     jc, tc = compiled("reduced", mode)
-    jf, tf = _flat_jax(jc), _flat_port(tc)
+    jf, tf = flat_jax(jc), flat_port(tc)
     assert jf.keys() == tf.keys()
     n_stacked = 0
     for k, jp in jf.items():
@@ -212,13 +185,13 @@ def test_rmsnorm_and_rope_match_jax(layer_inputs):
     tp = {"scale": tp["scale"] * 0.5 + 0.25}      # a non-trivial scale
     jp = {"scale": jnp.asarray(tp["scale"].numpy())}
     want = jax.jit(lambda p, x: jlayers.rmsnorm(p, x, 1e-6))(jp, xj)
-    _assert_within_bf16_ulp(_np(want), tlayers.rmsnorm(tp, xt, 1e-6).float())
+    _assert_within_bf16_ulp(to_np(want), tlayers.rmsnorm(tp, xt, 1e-6).float())
     q = xt.reshape(2, 9, 4, 32)
     pos = np.arange(3, 12)[None].repeat(2, 0)
     want = jax.jit(jlayers.apply_rope)(jnp.asarray(q.float().numpy()).astype(
         jnp.bfloat16), jnp.asarray(pos))
     got = tlayers.apply_rope(q, torch.from_numpy(pos))
-    _assert_within_bf16_ulp(_np(want), got.float())
+    _assert_within_bf16_ulp(to_np(want), got.float())
 
 
 @pytest.mark.parametrize("mode", ["int8", "sparse_cfmm"])
@@ -227,7 +200,7 @@ def test_ffn_matches_jax(compiled, layer_inputs, mode):
     jc, tc = compiled("reduced", mode)
     jp = jax.tree.map(lambda a: a[0], jnn.unbox(jc["template"][0]["ffn"]))
     tp = tlm._layer(tnn.unbox(tc["template"][0]["ffn"]), 0)
-    want = _np(jax.jit(jlayers.ffn)(jp, xj))
+    want = to_np(jax.jit(jlayers.ffn)(jp, xj))
     got = tlayers.ffn(tp, xt).float().numpy()
     assert float(np.abs(got - want).max()) <= FFN_BOUND
 
@@ -236,94 +209,27 @@ def test_ffn_matches_jax(compiled, layer_inputs, mode):
 # The two engines, call by call
 # ---------------------------------------------------------------------------
 
-def _requests(vocab, cls):
-    rng = np.random.RandomState(11)
-    return [cls(rid=i, prompt=[int(t) for t in rng.randint(1, vocab, L)],
-                max_new_tokens=MAX_NEW) for i, L in enumerate(PROMPTS)]
-
-
 @pytest.fixture(scope="module")
 def served(compiled):
-    """(config, mode) -> the two engines' runs: per forward call (in
-    order) its kind, the active rows, and the last-position logits of
-    both packages; and both engines' tokens.  Without EOS the schedule
-    of calls is the same in both, whatever tokens they pick."""
+    """(config, mode) -> the two engines' runs (tests/_torch_lm_parity.py
+    ``run_engines``): per forward call its kind, the active rows and the
+    last-position logits of both packages, and both engines' tokens."""
     runs = {}
 
     def get(name, mode):
-        if (name, mode) in runs:
-            return runs[name, mode]
-        jcfg, tcfg = _configs(name)
-        jc, tc = compiled(name, mode)
-        jcalls, tcalls = [], []
-        je = jeng.ServingEngine(jcfg, jc, mode="dense", batch_slots=SLOTS,
-                                max_seq=MAX_SEQ)   # jc is compiled already
-        prefill_fn, decode = je._prefill_fn, je._decode
-
-        def rec_prefill_fn(bucket):
-            fn = prefill_fn(bucket)
-
-            def call(p, c, b):
-                logits, nc = fn(p, c, b)
-                jcalls.append(("prefill", [0], _np(logits[:, -1])))
-                return logits, nc
-            return call
-
-        def rec_decode(p, c, b):
-            logits, nc = decode(p, c, b)
-            active = [i for i, r in enumerate(je.active) if r is not None]
-            jcalls.append(("decode", active, _np(logits[:, -1])))
-            return logits, nc
-
-        je._prefill_fn, je._decode = rec_prefill_fn, rec_decode
-        jreqs = je.run(_requests(jcfg.vocab, jeng.Request))
-
-        te = teng.ServingEngine(tcfg, tnn.unbox(tc), mode=mode,
-                                batch_slots=SLOTS, max_seq=MAX_SEQ,
-                                device="cpu")
-        with pytest.MonkeyPatch.context() as mp:
-            for fname in ("forward_prefill", "forward_decode"):
-                def rec(*a, _f=getattr(tlm, fname), **kw):
-                    logits, nc = _f(*a, **kw)
-                    tcalls.append(logits[:, -1].float().numpy())
-                    return logits, nc
-                mp.setattr(tlm, fname, rec)
-            treqs = te.run(_requests(tcfg.vocab, teng.Request))
-        assert len(jcalls) == len(tcalls)
-        runs[name, mode] = dict(
-            calls=[(kind, rows, jl, tl) for (kind, rows, jl), tl
-                   in zip(jcalls, tcalls)],
-            jax_tokens=[r.tokens_out for r in jreqs],
-            port_tokens=[r.tokens_out for r in treqs])
+        if (name, mode) not in runs:
+            jcfg, tcfg = _configs(name)
+            runs[name, mode] = run_engines(jcfg, tcfg, *compiled(name, mode),
+                                           mode, PROMPTS, SLOTS, MAX_SEQ,
+                                           MAX_NEW)
         return runs[name, mode]
     return get
-
-
-def _compare(run):
-    """Walk the calls in order.  A prefill sees only its prompt, so every
-    prefill is compared; decode steps are compared up to the first step
-    at which a greedy token differs (the slots share each linear's
-    activation scale, so after it every row sees other inputs).  Returns
-    (max |dlogit| over the rows compared, tokens compared, the JAX
-    margins between its top token and the port's where they differ)."""
-    worst, n_tok, margins, parted = 0.0, 0, [], False
-    for kind, rows, jl, tl in run["calls"]:
-        if kind == "decode" and parted:
-            continue
-        for r in rows:
-            worst = max(worst, float(np.abs(jl[r] - tl[r]).max()))
-            jt, tt = int(np.argmax(jl[r])), int(np.argmax(tl[r]))
-            if jt != tt:
-                margins.append(float(jl[r][jt] - jl[r][tt]))
-                parted = True
-            n_tok += 1
-    return worst, n_tok, margins
 
 
 @pytest.mark.parametrize("case", CASES, ids="-".join)
 def test_prefill_and_decode_logits_match_jitted_jax(served, case):
     run = served(*case)
-    worst, n_tok, _ = _compare(run)
+    worst, n_tok, _ = compare_calls(run)
     assert {kind for kind, _, _, _ in run["calls"]} == {"prefill", "decode"}
     assert n_tok >= len(PROMPTS) + 1    # every prefill and a decode step
     assert worst <= LOGIT_BOUND, (case, worst)
@@ -334,7 +240,7 @@ def test_engine_greedy_tokens_match_jitted_jax(served, case):
     """Greedy tokens equal wherever JAX's margin exceeds twice the logit
     bound; with no step parted, the whole token streams are equal."""
     run = served(*case)
-    _, n_tok, margins = _compare(run)
+    _, n_tok, margins = compare_calls(run)
     assert all(m <= 2 * LOGIT_BOUND for m in margins), (case, margins)
     if not margins:
         assert n_tok == len(PROMPTS) * MAX_NEW

@@ -187,9 +187,9 @@ def test_lm_config_and_unported_parts_raise():
                                                    2560, 49152)
     assert cfg.tie_embeddings and cfg.reduced().n_kv_heads == 1
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        serve.build_cfg("gemma3_1b", "tiny")
+        serve.build_cfg("olmoe_1b_7b", "tiny")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        lm.forward_train({}, {}, cfg)
+        lm.forward_train({}, {}, cfg, qat=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         lm.cache_init(serve.build_cfg("smollm_360m", "tiny"), 1, 8,
                       kv_dtype=torch.int8)

@@ -325,8 +325,18 @@ def test_pipeline_bit_identical_to_port_reference(images, model, mode):
 
 
 def test_dense_forwards_raise():
+    """The dense forwards, which raised before they were ported, run on
+    the float trees (tests/test_torch_dense.py holds them to JAX); a
+    compiled conv leaf on the dense path still raises, as in JAX
+    (``apply_linear``: use ``apply_conv``) — here the compiled UNFUSED
+    RepVGG tree."""
+    x = torch.zeros((1, 32, 32, 3))
     for model in sorted(CFGS):
         _, tcfg = CFGS[model]
-        tree = _trees(model)[1]
-        with pytest.raises(NotImplementedError):
-            tcfg.apply(tnn.unbox(tree), torch.zeros((1, 32, 32, 3)))
+        logits = tcfg.apply(tnn.unbox(_trees(model)[1]), x)
+        assert logits.shape == (1, 10) and bool(torch.isfinite(logits).all())
+    jcfg, tcfg = CFGS["repvgg_a0"]
+    unfused = tnn.params_from_numpy(_jax_init("repvgg_a0", jcfg, seed=5))
+    compiled = tnn.unbox(tcl.compile_params(unfused, mode="int8"))
+    with pytest.raises(AssertionError, match="use apply_conv"):
+        tcfg.apply(compiled, x)
