@@ -13,12 +13,14 @@
    ``cfmm_matmul`` (the int8 and cfmm modes' product) also at the LM's
    linear shapes, ``cfmm_matmul`` with its plan (variant, tiles,
    splits), also at the dense LM configs' widest linears and untied
-   heads; ``sparse_matvec`` also at Gemma3-1B's; ``flash_attention`` in
-   bf16 and f32 at SmolLM-360M's
-   prefill shapes, rectangular Tq < Tk, a non-causal Tk = 1500, a
-   Gemma3-like window and Dv != D, and in bf16 at the prefill shapes of
-   StableLM-3B (D = 80), Gemma3-1B (D = 256, window 512 and none) and
-   Phi-3-medium (D = 128) at T = 1024, within ``FLASH_TOL``; prints the
+   heads; ``sparse_matvec`` also at Gemma3-1B's; both at OLMoE-1B-7B's
+   expert linears (M = the expert queue's cap: 160, 80, 16 for the 1024-,
+   512- and 64-token buckets, 8 in decode) and attention linears;
+   ``flash_attention`` in bf16 and f32 at SmolLM-360M's prefill shapes,
+   rectangular Tq < Tk, a non-causal Tk = 1500, a Gemma3-like window and
+   Dv != D, and in bf16 at the prefill shapes of StableLM-3B (D = 80),
+   Gemma3-1B (D = 256, window 512 and none), Phi-3-medium and
+   OLMoE-1B-7B (D = 128) at T = 1024, within ``FLASH_TOL``; prints the
    variant each shape runs (flash: the tensor-core ``mma`` or the
    CUDA-core ``fma`` kernel; ``sparse_matvec``: ``rows`` or ``split`` and
    its split over K); times each (median of CUDA-event timings of
@@ -88,16 +90,19 @@
    2 images: ResNet50, MobileNetV2, RepVGG-A0 fused and unfused, each
    within ``DENSE_CNN_REL_BOUND`` of the CPU's dense forward, ResNet50's
    distance to its served ``int8`` logits printed;
-4. serves the dense LM zoo at full width (``LM_PATHS``; seeded random
+4. serves the LM zoo at full width (``LM_PATHS``; seeded random
    weights initialised and compiled on the card, one model tree and one
    engine alive at a time) through the LM ``ServingEngine``: SmolLM-360M
    in ``int8``, ``sparse_cfmm`` and ``dense`` (8 requests of 37-1000
    prompt tokens, 16 new tokens each), Gemma3-1B in ``dense``, ``int8``
    and ``sparse_cfmm``, StableLM-3B and Phi-3-medium-14B in ``dense`` and
-   ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), 4 slots.
+   ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), and the
+   MoE OLMoE-1B-7B in ``dense``, ``int8`` and ``sparse_cfmm`` (2 requests
+   of 37 and 777 tokens, 2 new tokens each: one decode step), 4 slots.
    Checks one ``flash_attention`` launch per layer and request, and per
    forward one ``cfmm_matmul`` (``int8``) or ``sparse_matvec``
-   (``sparse_cfmm``) per linear (7 per layer, and the untied head), the
+   (``sparse_cfmm``) per linear (``lm_linears``: 7 per dense layer, 4 + 3
+   per expert in an MoE layer, and the untied head), the
    first prefills' logits against the CPU's plain forward of the same
    tree (SmolLM two, Gemma3 one; the others are too large for a CPU
    forward in the time), and the logits and greedy tokens against a card
@@ -111,10 +116,18 @@
    no float64 GEMM); in the compiled modes one stacked leaf compiled on
    the card equals the CPU's compile byte for byte; in ``dense`` the
    bucketed prefill against the unpadded one on the card, within
-   ``LM_BUCKET_BOUND``, which a planted length fault must fail;
+   ``LM_BUCKET_BOUND`` (an MoE stack at a capacity that keeps every
+   pick: the capacity follows the padded token count), which a planted
+   length fault must fail; in an MoE stack the share of
+   routing picks equal between the kernel run and the plain run, and
+   the witness of a spread past the bounds: the kernel run on the plain
+   run's picks replayed (``RouteRecorder``), held to the bounds;
    reports prefill and decode tokens/s, one profiled run's idle share
    and the peak device memory of each path;
-5. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
+5. runs the six example ports (``examples/torch_*.py``) from ``main``
+   on the card at their default flags: each one's own checks and "OK"
+   line, and the launch counters of the kernels on its path;
+6. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
 line.  It also fails without CUDA, and outside a checkout of the repo.
@@ -123,6 +136,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -305,7 +319,14 @@ CFMM_SHAPES = [("head", 2, 2048, 1000), ("head", 2, 1280, 1000),
                ("Phi-3 down", 1024, 17920, 5120),
                ("Phi-3 gate/up decode", 4, 5120, 17920),
                ("Phi-3 head prefill", 1, 5120, 100352),
-               ("Phi-3 head decode", 4, 5120, 100352)]
+               ("Phi-3 head decode", 4, 5120, 100352)] + [
+    # OLMoE-1B-7B: each expert's linears on its queue of cap rows (cap
+    # 160, 80, 16 for the 1024-, 512- and 64-token buckets, 8 in decode)
+    # and the attention linears at 1024 tokens
+    (f"OLMoE expert {name} cap={M}", M, K, N)
+    for M in (160, 80, 16, 8)
+    for name, K, N in (("gate/up", 2048, 1024), ("down", 1024, 2048))] + [
+    ("OLMoE q/k/v/o", 1024, 2048, 2048)]
 
 
 def conv_case(spec, dev, gen):
@@ -664,7 +685,12 @@ SPARSE_SHAPES = [("head", 2, 2048, 1000), ("LM q/o", 1024, 960, 960),
                  ("Gemma3 q", 1024, 1152, 1024),
                  ("Gemma3 gate/up", 1024, 1152, 6912),
                  ("Gemma3 down", 1024, 6912, 1152),
-                 ("Gemma3 gate/up decode", 4, 1152, 6912)]
+                 ("Gemma3 gate/up decode", 4, 1152, 6912)] + [
+    # OLMoE-1B-7B's expert linears (cap rows) and attention linears
+    (f"OLMoE expert {name} cap={M}", M, K, N)
+    for M in (160, 80, 16, 8)
+    for name, K, N in (("gate/up", 2048, 1024), ("down", 1024, 2048))] + [
+    ("OLMoE q/k/v/o", 1024, 2048, 2048)]
 
 
 def check_sparse_matvec(label, M, K, N, dev, gen):
@@ -728,6 +754,8 @@ LM_FLASH_SHAPES = [
     ("Gemma3-1B local T=1024", 1, 1, 4, 1024, 1024, 256, 256, True, 512),
     ("Gemma3-1B global T=1024", 1, 1, 4, 1024, 1024, 256, 256, True, None),
     ("Phi-3-medium prefill T=1024", 1, 10, 4, 1024, 1024, 128, 128, True,
+     None),
+    ("OLMoE-1B-7B prefill T=1024", 1, 16, 1, 1024, 1024, 128, 128, True,
      None),
 ]
 # kernel against plain version on the card (as tests/test_torch_kernels_
@@ -1545,17 +1573,21 @@ def dense_cnn_phase(kernels, card, trees, serve_images):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the dense LM zoo served at full width through the LM engine
+# Phase 4: the LM zoo served at full width through the LM engine
 # ---------------------------------------------------------------------------
 
 LM_PROMPTS = (37, 64, 130, 255, 300, 511, 777, 1000)
 LM_NEW, LM_SLOTS = 16, 4
-# the three larger configs: 4 requests (buckets 64, 512, 1024, 1024, so
-# Gemma3's window of 512 binds), 8 new tokens each
+# the three larger dense configs: 4 requests (buckets 64, 512, 1024,
+# 1024, so Gemma3's window of 512 binds), 8 new tokens each
 DENSE_LM_PROMPTS = (37, 300, 777, 1000)
 DENSE_LM_NEW = 8
+# OLMoE-1B-7B: every forward runs 3137 linears (3 x 64 experts x 16
+# layers, the attention and the head), about 1 s of host per forward in
+# the compiled modes; 2 requests (buckets 64 and 1024), 2 new tokens each
+OLMOE_PROMPTS = (37, 777)
+OLMOE_NEW = 2
 LM_MAX_SEQ = 1024 + 16 + 8
-LM_LINEARS = 7                  # q, k, v, o, gate, up, down per layer
 # (arch, modes, prompts, new tokens, prefills held against the CPU's plain
 # forward)
 LM_PATHS = [
@@ -1565,6 +1597,10 @@ LM_PATHS = [
     ("stablelm_3b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
     # f32 weights are 58.6 GB: too large for a CPU forward in the time
     ("phi3_medium_14b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
+    # the MoE FFN: f32 weights are 25.8 GiB, too large for a CPU forward
+    # in the time
+    ("olmoe_1b_7b", ("dense", "int8", "sparse_cfmm"), OLMOE_PROMPTS,
+     OLMOE_NEW, 0),
 ]
 # the kernel each compiled mode's linears launch
 LM_LINEAR = {"int8": "cfmm_matmul", "sparse_cfmm": "sparse_matvec"}
@@ -1575,7 +1611,10 @@ PUBLISHED = {
     "gemma3_1b": (26, 1152, 4, 1, 256, 6912, 262144),
     "stablelm_3b": (32, 2560, 32, 32, 80, 6912, 50304),
     "phi3_medium_14b": (40, 5120, 40, 10, 128, 17920, 100352),
+    "olmoe_1b_7b": (16, 2048, 16, 16, 128, 1024, 50304),
 }
+# (n_experts, top_k, d_ff_expert) of the MoE configs, as published
+PUBLISHED_MOE = {"olmoe_1b_7b": (64, 8, 1024)}
 # max |dlogit| allowed between two forwards of the same tokens: the card
 # against the CPU's plain versions, and the kernels against their plain
 # versions substituted on the card.  Both sides compute the same function
@@ -1607,6 +1646,23 @@ LM_DECODE_BOUNDS = {"stablelm_3b/int8": 1.0, "phi3_medium_14b/int8": 1.0}
 # StableLM, Phi-3 at 37 -> 64 and 777 -> 1024 tokens), held with 2x
 # headroom; a prefill that reads the wrong position reads several
 LM_BUCKET_BOUND = 0.15
+# the MoE capacity factor of that check: every expert queue holds every
+# token, so no pick is dropped in either run (JAX's test_decode.py runs
+# its MoE configs at the same factor)
+LOOSE_CAPACITY = 16.0
+
+
+def lm_linears(cfg) -> int:
+    """The linears one forward runs: per layer q, k, v, o and the FFN's
+    gate, up and down, three per expert in an MoE layer (every expert
+    runs on its queue, empty rows too, as JAX's vmap runs them), and an
+    untied head."""
+    n = 0
+    for sig in cfg.layer_sigs():
+        experts = (cfg.moe.n_experts + (cfg.moe.n_shared > 0)
+                   if sig["moe"] else 1)
+        n += 4 + 3 * experts
+    return n + (0 if cfg.tie_embeddings else 1)
 
 
 def lm_requests(cfg, prompts=LM_PROMPTS, new=LM_NEW):
@@ -1657,6 +1713,76 @@ class LMRecorder:
     def __exit__(self, *exc):
         from repro_torch.models import lm
         lm.forward_prefill, lm.forward_decode = self._orig
+
+
+class RouteRecorder:
+    """Wraps ``moe.route`` for one run: the picks (``expert_idx``, on the
+    card) and keep mask of every MoE layer call, in order.  With
+    ``replay`` (another run's recorder), ``moe.pick_experts`` returns that
+    run's picks, call by call, in place of its own: the run makes the
+    other run's routing choices with its own arithmetic."""
+
+    def __init__(self, replay=None):
+        self.picks, self.keeps, self.replay = [], [], replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = (moe.route, moe.pick_experts)
+
+        def route(*a, **kw):
+            r = self._orig[0](*a, **kw)
+            self.picks.append(r.expert_idx)
+            self.keeps.append(r.keep)
+            return r
+        moe.route = route
+        if self.replay is not None:
+            taped = iter(self.replay.picks)
+
+            def pick(probs, top_k):
+                want = next(taped)
+                check(tuple(want.shape) == (probs.shape[0], top_k),
+                      "routing replay: the runs' schedules differ")
+                return want
+            moe.pick_experts = pick
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route, moe.pick_experts = self._orig
+
+
+def real_rows(call) -> list:
+    """The token rows of one recorded forward whose routing reaches a
+    served logit: a prefill's first L rows (its pad rows queue behind
+    them), a decode step's active slots."""
+    kind, rows, _, _, batch = call
+    if kind == "decode":
+        return rows
+    length = batch.get("length")
+    return list(range(int(length[0]) if length is not None
+                      else batch["tokens"].shape[1]))
+
+
+def routing_agreement(calls_a, calls_b, route_a, route_b, n_moe):
+    """Two runs' routing picks, (layer, token, choice) by choice, over the
+    real rows (``real_rows``) of every prefill and of the decode steps
+    before a greedy token parts (as ``compare_runs``).  Returns (picks
+    compared, share equal)."""
+    n = same = 0
+    parted = False
+    for c, (call_a, call_b) in enumerate(zip(calls_a, calls_b)):
+        if call_a[0] == "decode" and parted:
+            continue
+        rows = torch.tensor(real_rows(call_a))
+        for i in range(c * n_moe, (c + 1) * n_moe):
+            a = route_a.picks[i].cpu()[rows]
+            b = route_b.picks[i].cpu()[rows]
+            n += a.numel()
+            same += int((a == b).sum())
+        parted = parted or any(int(call_a[2][r].argmax())
+                               != int(call_b[2][r].argmax())
+                               for r in call_a[1])
+    return n, same / max(n, 1)
 
 
 @contextlib.contextmanager
@@ -1815,29 +1941,46 @@ def bucketed_against_unpadded(tree, cfg, reqs, label):
     may pick another GEMM for another M.  A planted fault, the bucketed
     prefill told a length one short (it reads the logits of the token
     before the last), must fall outside the bound.  Returns max |dlogit|
-    by prompt, and the planted fault's."""
+    by prompt, and the planted fault's.
+
+    An MoE stack runs at ``LOOSE_CAPACITY``: its capacity follows the
+    token count, pad rows included (a 37-token prompt queues 8 rows per
+    expert unpadded and 16 in its 64 bucket at the served 1.25), so at
+    the served capacity a real pick dropped in one run may be kept in the
+    other; at 16 every queue holds every token, no pick is dropped, and
+    the pad rows queue behind the real ones (as the CPU test
+    ``test_dense_bucketed_prefill_bit_exact`` runs it)."""
     from repro_torch import nn
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
     from repro_torch.serving.engine import _bucket_len
     out, planted = {}, {}
-    for r in (reqs[0], next(r for r in reqs if len(r.prompt) == 777)):
-        L = len(r.prompt)
-        bucket = _bucket_len(L, LM_MAX_SEQ)
-        logits = []
-        for width, length in ((L, None), (bucket, L), (bucket, L - 1)):
-            toks = torch.zeros((1, width), dtype=torch.long)
-            toks[0, :L] = torch.tensor(r.prompt)
-            batch = {"tokens": toks.cuda()}
-            if length is not None:
-                batch["length"] = torch.tensor([length], dtype=torch.int32)
-            cache = nn.unbox(lm.cache_init(cfg, 1, LM_MAX_SEQ,
-                                           device="cuda"))
-            logits.append(lm.forward_prefill(tree, batch, cfg, cache)[0]
-                          .float())
-        out[L] = float((logits[0] - logits[1]).abs().max())
-        planted[L] = float((logits[0] - logits[2]).abs().max())
-    print(f"[lm] {label}: bucketed vs unpadded prefill on the card: "
-          f"max|dlogit| by prompt {out}; planted length-1 fault "
+    served = moe.moe_forward
+    if cfg.moe is not None:
+        moe.moe_forward = functools.partial(served,
+                                            capacity_factor=LOOSE_CAPACITY)
+    try:
+        for r in (reqs[0], next(r for r in reqs if len(r.prompt) == 777)):
+            L = len(r.prompt)
+            bucket = _bucket_len(L, LM_MAX_SEQ)
+            logits = []
+            for width, length in ((L, None), (bucket, L), (bucket, L - 1)):
+                toks = torch.zeros((1, width), dtype=torch.long)
+                toks[0, :L] = torch.tensor(r.prompt)
+                batch = {"tokens": toks.cuda()}
+                if length is not None:
+                    batch["length"] = torch.tensor([length],
+                                                   dtype=torch.int32)
+                cache = nn.unbox(lm.cache_init(cfg, 1, LM_MAX_SEQ,
+                                               device="cuda"))
+                logits.append(lm.forward_prefill(tree, batch, cfg, cache)[0]
+                              .float())
+            out[L] = float((logits[0] - logits[1]).abs().max())
+            planted[L] = float((logits[0] - logits[2]).abs().max())
+    finally:
+        moe.moe_forward = served
+    print(f"[lm] {label}: bucketed vs unpadded prefill on the card"
+          + (f" (MoE capacity factor {LOOSE_CAPACITY})" if cfg.moe else "")
+          + f": max|dlogit| by prompt {out}; planted length-1 fault "
           f"{planted}", flush=True)
     check(max(out.values()) <= LM_BUCKET_BOUND,
           f"{label}: bucketed prefill off the unpadded one by {out}")
@@ -1860,7 +2003,7 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
     decode tokens/s; one profiled run; the peak device memory.  One model
     tree and one engine live at a time."""
     from repro_torch import nn
-    from repro_torch.core.compiled_linear import _compile_leaf, ensure_compiled
+    from repro_torch.core.compiled_linear import ensure_compiled
     from repro_torch.launch.serve import build_cfg
     from repro_torch.models import lm
     from repro_torch.serving.engine import ServingEngine, _bucket_len
@@ -1868,6 +2011,9 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
            cfg.head_dim, cfg.d_ff, cfg.vocab) == PUBLISHED[arch],
           f"{arch}: not the published full width")
+    if arch in PUBLISHED_MOE:
+        check((cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert)
+              == PUBLISHED_MOE[arch], f"{arch}: not the published MoE")
     requests = lambda: lm_requests(cfg, prompts, new)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1882,25 +2028,16 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
           f"{gib(4 * n_params)}, peak during init {gib(init_peak)} of "
           f"{gib(torch.cuda.get_device_properties(0).total_memory)}",
           flush=True)
-    head = 0 if cfg.tie_embeddings else 1      # an untied head's linear
     results = {}
     for i, mode in enumerate(modes):
         label = f"{arch}/{mode}"
-        t0 = time.perf_counter()
+        t0 = t_mode = time.perf_counter()
         tree = ensure_compiled(params, mode, 0.8)
         torch.cuda.synchronize()
         t_compile = time.perf_counter() - t0
         linear = LM_LINEAR.get(mode)
         if linear:
-            # one stacked leaf: card-compiled bytes against the CPU's
-            leaf = params["template"][0]["mixer"]["k"]
-            cpu_leaf = _compile_leaf(nn.Param(leaf.value.cpu(), leaf.axes,
-                                              leaf.kind), mode, 0.8)
-            for key, p in cpu_leaf.items():
-                card_bytes = tree["template"][0]["mixer"]["k"][key].cpu()
-                check(torch.equal(card_bytes, p.value),
-                      f"{label}: the card's compiled k[{key}] differs from "
-                      "the CPU's")
+            check_card_compile(params, tree, cfg, mode, label)
         if i == len(modes) - 1:
             params = None                    # the last mode: one tree left
             torch.cuda.empty_cache()
@@ -1914,7 +2051,8 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         reqs = requests()
         witnessed = label in LM_DECODE_BOUNDS
         t0 = time.perf_counter()
-        with LMRecorder(eng, snapshot=witnessed) as rec:
+        with LMRecorder(eng, snapshot=witnessed) as rec, \
+                RouteRecorder() as route_k:
             eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1922,7 +2060,7 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         n_fwd = len(rec.calls)
         want = {"flash_attention": cfg.n_layers * len(prompts)}
         if linear:
-            want[linear] = (cfg.n_layers * LM_LINEARS + head) * n_fwd
+            want[linear] = lm_linears(cfg) * n_fwd
         for name, got in counts.items():
             check(got == want.get(name, 0), f"{label}: {got} {name} "
                   f"launches in {n_fwd} forwards, want {want.get(name, 0)}")
@@ -1985,9 +2123,10 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
 
         # the logits and greedy tokens against the plain versions
         substituted = ["flash_attention"] + ([linear] if linear else [])
-        rec_plain, plain_reqs = substituted_run(
-            make, requests, kernels, plain_versions(substituted),
-            substituted, label, snapshot=witnessed)
+        with RouteRecorder() as route_p:
+            rec_plain, plain_reqs = substituted_run(
+                make, requests, kernels, plain_versions(substituted),
+                substituted, label, snapshot=witnessed)
         pre_d, dec_d, n_tok, margins = compare_runs(rec_plain.calls,
                                                     rec.calls)
         same = sum(a == b for r, pr in zip(reqs, plain_reqs)
@@ -2004,13 +2143,31 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
               f"decode {dec_d:.4g} (logit std {std:.3f}); margins where "
               f"parted {margins}", flush=True)
         dec_bound = LM_DECODE_BOUNDS.get(label, LM_LOGIT_BOUND)
-        check(max(pre_d) <= LM_LOGIT_BOUND and dec_d <= dec_bound,
-              f"{label}: kernel run off the plain run by {max(pre_d):.4g} "
-              f"(prefill), {dec_d:.4g} (decode)")
-        check(all(m <= 2 * LM_LOGIT_BOUND for m in margins),
-              f"{label}: a token parted at margin {max(margins, default=0)}")
-        check(streams_equal or margins, f"{label}: streams differ though "
-              "no compared step parted")
+        held = dict(prefill=pre_d, decode=dec_d, margins=margins,
+                    streams_equal=streams_equal)
+        routing = None
+        if cfg.moe is not None:
+            routing = moe_routing(make, requests, kernels, cfg, label, rec,
+                                  rec_plain, route_k, route_p, n_fwd,
+                                  plain_reqs)
+            if (max(pre_d) > LM_LOGIT_BOUND or dec_d > dec_bound
+                    or any(m > 2 * LM_LOGIT_BOUND for m in margins)):
+                # a routing pick turned by a rounding: the witness, the
+                # kernel run on the plain run's picks, must hold the bounds
+                held = routing["replayed"]
+                print(f"[lm] {label}: off the plain run past the bounds; "
+                      f"held on the plain run's routing replayed "
+                      f"(witness)", flush=True)
+        check(max(held["prefill"]) <= LM_LOGIT_BOUND
+              and held["decode"] <= dec_bound,
+              f"{label}: kernel run off the plain run by "
+              f"{max(held['prefill']):.4g} (prefill), {held['decode']:.4g} "
+              f"(decode)")
+        check(all(m <= 2 * LM_LOGIT_BOUND for m in held["margins"]),
+              f"{label}: a token parted at margin "
+              f"{max(held['margins'], default=0)}")
+        check(held["streams_equal"] or held["margins"], f"{label}: streams "
+              "differ though no compared step parted")
 
         bucketed = (bucketed_against_unpadded(tree, cfg, reqs, label)
                     if mode == "dense" else None)
@@ -2031,7 +2188,8 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         peak = torch.cuda.max_memory_allocated()
         print(f"[lm] {label}: peak device memory {gib(peak)} (init "
               f"{gib(init_peak)}) of "
-              f"{gib(torch.cuda.get_device_properties(0).total_memory)}",
+              f"{gib(torch.cuda.get_device_properties(0).total_memory)}; "
+              f"the mode's checks took {time.perf_counter() - t_mode:.1f}s",
               flush=True)
         results[label] = dict(
             counts=counts, forwards=n_fwd, wall_s=wall,
@@ -2042,12 +2200,72 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
                        tokens_equal=same, prefill_max_dlogit=pre_d,
                        decode_max_dlogit=dec_d, decode_bound=dec_bound,
                        logit_std=std, margins=margins),
-            bucketed_vs_unpadded=bucketed, profile=prof,
+            routing=routing, bucketed_vs_unpadded=bucketed, profile=prof,
             plain_linear=plain_linear, decode_witnesses=witnesses,
             peak_bytes=peak, init_peak_bytes=init_peak)
-        del eng, rec, tree, make
+        del eng, rec, tree, make, route_k, route_p
         torch.cuda.empty_cache()
     return results
+
+
+def check_card_compile(params, tree, cfg, mode, label):
+    """One stacked leaf (and in an MoE stack the first two experts of one
+    expert leaf) compiled on the card: the same bytes as the CPU's
+    compile.  A function of its own, so that no reference to the f32
+    tree outlives the check."""
+    from repro_torch import nn
+    from repro_torch.core.compiled_linear import _compile_leaf
+    block, ctree = params["template"][0], tree["template"][0]
+    leaves = [("k", block["mixer"]["k"], ctree["mixer"]["k"], ...)]
+    if cfg.moe is not None:
+        leaves.append(("expert down", block["ffn"]["experts"]["down"],
+                       ctree["ffn"]["experts"]["down"], (0, slice(0, 2))))
+    for name, leaf, card_leaf, part in leaves:
+        value = leaf.value[part].cpu()
+        cpu_leaf = _compile_leaf(nn.Param(value, leaf.axes[-value.ndim:],
+                                          leaf.kind), mode, 0.8)
+        for key, p in cpu_leaf.items():
+            check(torch.equal(card_leaf[key][part].cpu(), p.value),
+                  f"{label}: the card's compiled {name}[{key}] differs "
+                  "from the CPU's")
+
+
+def moe_routing(make, requests, kernels, cfg, label, rec, rec_plain,
+                route_k, route_p, n_fwd, plain_reqs):
+    """An MoE path's routing: the share of (layer, token, choice) picks
+    equal between the kernel run and the plain-version run, and the
+    witness of where a logit spread past the bounds comes from: the
+    kernel run again with the plain run's picks replayed
+    (``RouteRecorder(replay=)``) against the plain run."""
+    n_moe = sum(bool(sig["moe"]) for sig in cfg.layer_sigs())
+    check(len(route_k.picks) == len(route_p.picks) == n_fwd * n_moe,
+          f"{label}: {len(route_k.picks)} routed layer calls in {n_fwd} "
+          f"forwards, want {n_fwd * n_moe}")
+    n_picks, share = routing_agreement(
+        rec.calls, rec_plain.calls, route_k, route_p, n_moe)
+    replay = RouteRecorder(replay=route_p)
+    rec_replay, replay_reqs = substituted_run(make, requests, kernels,
+                                              replay, [], label)
+    check(all(torch.equal(a, b) for a, b in zip(replay.picks,
+                                                 route_p.picks)),
+          f"{label}: the replayed run made other picks")
+    r_pre, r_dec, r_tok, r_margins = compare_runs(rec_plain.calls,
+                                                  rec_replay.calls)
+    r_streams = all(r.tokens_out == pr.tokens_out
+                    for r, pr in zip(replay_reqs, plain_reqs))
+    kept = [float(k.float().mean()) for k in route_k.keeps]
+    print(f"[lm] {label}: routing, kernel run vs the plain run: "
+          f"{100 * share:.3f}% of {n_picks} (layer, token, choice) picks "
+          f"equal; "
+          f"kept picks per layer call {min(kept):.4f}-{max(kept):.4f}; "
+          f"the kernel run on the plain run's picks vs the plain run: "
+          f"prefill max|dlogit| {[round(d, 4) for d in r_pre]}, decode "
+          f"{r_dec:.4g} over {r_tok} tokens, margins where parted "
+          f"{r_margins}, streams_equal={r_streams}", flush=True)
+    return dict(picks=n_picks, equal_share=share,
+                kept_min=min(kept), kept_max=max(kept),
+                replayed=dict(prefill=r_pre, decode=r_dec, tokens=r_tok,
+                              margins=r_margins, streams_equal=r_streams))
 
 
 def substituted_run(make, requests, kernels, subs, names, label,
@@ -2208,6 +2426,56 @@ def _kv_leaves(cache, path=""):
         yield path, cache if cache.ndim == 5 else cache[None]
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the example ports
+# ---------------------------------------------------------------------------
+
+# example -> the kernels its path launches on the card
+EXAMPLES = {
+    "quickstart": ("sparse_matvec", "flash_attention"),
+    "compile_resnet50": ("conv_implicit", "conv_sparse", "cfmm_matmul",
+                         "sparse_matvec"),
+    "serve_resnet50_pipeline": ("conv_implicit", "cfmm_matmul"),
+    "serve_resnet50_fleet": ("conv_implicit", "cfmm_matmul"),
+    "serve_model_zoo": ("conv_implicit", "conv_depthwise", "cfmm_matmul"),
+    "serve_lm": ("cfmm_matmul", "sparse_matvec", "flash_attention"),
+}
+
+
+def examples_phase(kernels):
+    """Each ``examples/torch_<name>.py`` run from ``main(["--device",
+    "cuda"])`` at its default flags: its own checks pass (served logits
+    bit-identical to ``reference_logits`` on the card, ...), its last
+    line is "<name> OK", and the launch counters (set to 0 just before)
+    show the kernels of its path ran."""
+    import importlib.util
+    import io
+    out = {}
+    for name, needed in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for kern in kernels.values():
+            kern.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lines = buf.getvalue().rstrip().splitlines()
+        counts = {k: v.launches for k, v in kernels.items() if v.launches}
+        print(f"[examples] {name}: {dt:.1f}s, launches {counts}; last "
+              f"lines: {lines[-3:]}", flush=True)
+        check(lines and lines[-1] == f"{name} OK",
+              f"example {name}: no OK line")
+        check(all(counts.get(k, 0) > 0 for k in needed),
+              f"example {name}: launched {counts}, want {needed}")
+        out[name] = dict(seconds=dt, launches=counts)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2296,6 +2564,9 @@ def main() -> int:
         lm_served.update(serve_lm(kernels, card, *path))
         print(f"[time] LM {path[0]} done at "
               f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    examples = examples_phase(kernels)
+    print(f"[time] examples done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
 
     meta = {
         "conv_implicit": ("src/repro_torch/csrc/conv_implicit.cu",
@@ -2329,6 +2600,9 @@ def main() -> int:
         by_path.update({f"fleet/resnet50/{wave}": v["launches"][name]
                         for wave, v in fleet.items()
                         if v.get("launches", {}).get(name)})
+        by_path.update({f"examples/{ex}": v["launches"][name]
+                        for ex, v in examples.items()
+                        if v["launches"].get(name)})
         status = (f"built, launched on the served paths, equal to its "
                   f"plain version at {len(shape_rows)} shape(s)")
         zr = zero_rows.get(name)
@@ -2374,6 +2648,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"dense_cnn": dense_cnn}), flush=True)
     print(json.dumps({"lm_serve": lm_served}), flush=True)
+    print(json.dumps({"examples": examples}), flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

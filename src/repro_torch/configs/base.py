@@ -141,9 +141,10 @@ class ArchConfig:
         return dataclasses.replace(self, **changes)
 
 
-# the LM configs the port has; the JAX package's other six wait for the
-# modules they need (MoE, SSM, MLA, M-RoPE, encoder-decoder: ROADMAP A8)
-ARCH_IDS = ("smollm_360m", "gemma3_1b", "stablelm_3b", "phi3_medium_14b")
+# the LM configs the port has; the JAX package's other five wait for the
+# modules they need (SSM, MLA, M-RoPE, encoder-decoder: ROADMAP A8)
+ARCH_IDS = ("smollm_360m", "gemma3_1b", "stablelm_3b", "phi3_medium_14b",
+            "olmoe_1b_7b")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,5 +1,5 @@
-"""LM assembly from an ``ArchConfig``: the attention + dense-FFN part
-(ports ``repro/models/lm.py``).
+"""LM assembly from an ``ArchConfig``: attention blocks with a dense or
+MoE FFN (ports ``repro/models/lm.py``).
 
 Layers group into (prefix, periodic template x n_groups, suffix) exactly
 as in the JAX package, and the template's parameters and caches carry a
@@ -7,11 +7,13 @@ leading ``layers`` axis, so the two packages' trees match leaf for leaf.
 JAX scans the template (with remat); the port runs it as a Python loop
 over that axis, on views of the stacked tensors.
 
-Ported: dense GQA stacks (SmolLM, Gemma3, StableLM, Phi-3), sliding-window
-layers, the full forward (``forward_train`` without QAT or remat),
-prefill (with the serving engine's bucketed ``length`` path) and decode,
-on compiled or dense (float) weight leaves.  MoE, Mamba, RWKV, MLA, the
-encoder-decoder and QAT raise ``NotImplementedError`` (ROADMAP A8).
+Ported: GQA stacks (SmolLM, Gemma3, StableLM, Phi-3) with dense or MoE
+FFNs (OLMoE, models/moe.py; ``moe_pattern`` mixes both in one template),
+sliding-window layers, the full forward (``forward_train`` without QAT or
+remat, with the MoE aux summed over the layers), prefill (with the
+serving engine's bucketed ``length`` path) and decode, on compiled or
+dense (float) weight leaves.  Mamba, RWKV, MLA, the encoder-decoder and
+QAT raise ``NotImplementedError`` (ROADMAP A8).
 
 Cache counters (``length``, ``pos``) live on the host; ``k``/``v`` live
 with the parameters and are written in place (models/attention.py).
@@ -25,6 +27,7 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed, embed_init, ffn, ffn_init,
                                        layernorm, layernorm_init, lm_head,
                                        lm_head_init, rmsnorm, rmsnorm_init)
@@ -66,7 +69,7 @@ def group_layers(sigs):
 
 
 # ---------------------------------------------------------------------------
-# Single block (attention + dense FFN)
+# Single block (attention + dense or MoE FFN)
 # ---------------------------------------------------------------------------
 
 def _norm_init(gen, cfg, d=None):
@@ -85,8 +88,6 @@ def _check_ported(cfg: ArchConfig, sig):
         raise NotImplementedError(f"the encoder-decoder {_A8}")
     if sig["kind"] != "attn":
         raise NotImplementedError(f"{sig['kind']} mixers {_A8}")
-    if sig["moe"]:
-        raise NotImplementedError(f"MoE FFNs {_A8}")
     if cfg.mla is not None:
         raise NotImplementedError(f"MLA {_A8}")
 
@@ -97,8 +98,9 @@ def block_init(gen, cfg: ArchConfig, sig, cross=False):
         raise NotImplementedError(f"cross-attention blocks {_A8}")
     p = {"ln1": _norm_init(gen, cfg), "mixer": attn.gqa_init(gen, cfg),
          "ln2": _norm_init(gen, cfg),
-         "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff,
-                         gated=cfg.act in ("silu", "gelu"))}
+         "ffn": (moe_mod.moe_init(gen, cfg) if sig["moe"] else
+                 ffn_init(gen, cfg.d_model, cfg.d_ff,
+                          gated=cfg.act in ("silu", "gelu")))}
     if cfg.post_block_norm:
         p["post_ln1"] = _norm_init(gen, cfg)
         p["post_ln2"] = _norm_init(gen, cfg)
@@ -127,7 +129,10 @@ def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
         out = _norm(p["post_ln1"], out, cfg)
     x = x + out
     h2 = _norm(p["ln2"], x, cfg)
-    y = ffn(p["ffn"], h2, act=cfg.act)
+    if sig["moe"]:
+        y, aux = moe_mod.moe_forward(p["ffn"], h2, cfg)
+    else:
+        y = ffn(p["ffn"], h2, act=cfg.act)
     if cfg.post_block_norm:
         y = _norm(p["post_ln2"], y, cfg)
     return x + y, new_cache, aux
@@ -286,7 +291,8 @@ def _embed_tokens(params, tokens, cfg):
 
 def forward_train(params, batch, cfg: ArchConfig, qat=False):
     """-> (logits, aux): every position's logits, no cache.  ``aux`` is
-    a dense stack's zero MoE aux, as the JAX package gives it.  JAX
+    the MoE aux (``lb_loss``, ``z_loss``, ``dropped_frac``) summed over
+    the layers, zero for a dense stack, as the JAX package gives it.  JAX
     rematerialises the scanned layers for the backward pass; the port has
     no backward yet, so it runs them as they are.  ``qat=True`` comes
     with training (ROADMAP A8 step 6)."""

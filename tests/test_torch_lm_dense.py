@@ -9,13 +9,16 @@
   from ``dense`` to ``int8`` to ``sparse_cfmm``.  The bucketed
   (end-padded) prefill equals the unpadded one bit for bit in ``dense``:
   logits, ``pos``, the length counters and the KV rows below the length.
-* ``tests/test_decode.py`` for the four dense configs at ``reduced()``:
-  a prefill and four decode steps against ``forward_train`` of the whole
-  sequence, within 0.06 of max |logit| and greedy tokens equal wherever
-  the full forward's margin exceeds 0.05 of it.
+* ``tests/test_decode.py`` for the port's five configs at ``reduced()``
+  (OLMoE's MoE at JAX's loose capacity, as there): a prefill and four
+  decode steps against ``forward_train`` of the whole sequence, within
+  0.06 of max |logit| and greedy tokens equal wherever the full
+  forward's margin exceeds 0.05 of it.
 * ``nn.vmap_init`` fills its preallocated stacks with the values the
   list-then-``torch.stack`` version gave, bit for bit.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +26,7 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.launch.serve import build_cfg
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 from repro_torch.serving.engine import Request, ServingEngine
 
 
@@ -169,7 +172,7 @@ def test_compiled_modes_storage_shrinks(tiny):
 
 
 # ---------------------------------------------------------------------------
-# The four dense configs at reduced()
+# The five configs at reduced()
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -201,13 +204,24 @@ def _kv_layers(cache):
             + [c for c in cache["suffix"]])
 
 
+def _loose_capacity(monkeypatch):
+    """MoE capacity for every token, as JAX's ``test_decode.py`` sets it:
+    the capacity follows the token count, so runs over other lengths
+    would otherwise drop other picks (tests/test_torch_moe.py holds the
+    drops)."""
+    monkeypatch.setattr(moe, "moe_forward", functools.partial(
+        moe.moe_forward, capacity_factor=16.0))
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_dense_bucketed_prefill_bit_exact(reduced, arch):
+def test_dense_bucketed_prefill_bit_exact(reduced, arch, monkeypatch):
     """In ``dense`` nothing couples a row to the pad rows (no shared
     activation scale), and causal attention hides them: the bucketed
     prefill's logits and the KV rows below the length are the unpadded
     prefill's, bit for bit (Gemma3: a 37-token prompt, past the reduced
-    window of 32)."""
+    window of 32).  OLMoE's pad rows queue behind the real ones, so at a
+    capacity that keeps every pick they displace none."""
+    _loose_capacity(monkeypatch)
     cfg, params = reduced(arch)
     for L, width in ((13, 16), (37, 64)):
         toks = np.random.RandomState(L).randint(1, cfg.vocab, L)
@@ -223,10 +237,12 @@ def test_dense_bucketed_prefill_bit_exact(reduced, arch):
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_decode_matches_full_forward(reduced, arch):
+def test_decode_matches_full_forward(reduced, arch, monkeypatch):
     """JAX ``test_decode.py`` in the port: prefill T - 4 tokens, decode
-    four, against ``forward_train`` of all T; aux is the dense stack's
-    zeros."""
+    four, against ``forward_train`` of all T, MoE at JAX's loose
+    capacity; aux is a dense stack's zeros, and an MoE stack drops no
+    pick."""
+    _loose_capacity(monkeypatch)
     cfg, params = reduced(arch)
     B, T = 2, 16
     toks = torch.from_numpy(np.random.RandomState(0).randint(
@@ -234,7 +250,11 @@ def test_decode_matches_full_forward(reduced, arch):
     full, aux = lm.forward_train(params, {"tokens": toks, "labels": toks},
                                  cfg)
     assert full.shape == (B, T, cfg.vocab) and full.dtype == torch.bfloat16
-    assert aux == {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
+    if cfg.moe is None:
+        assert aux == {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
+    else:
+        assert float(aux["dropped_frac"]) == 0.0
+        assert float(aux["lb_loss"]) > 0 and float(aux["z_loss"]) > 0
     cache = nn.unbox(lm.cache_init(cfg, B, 32))
     lg, cache = lm.forward_prefill(params, {"tokens": toks[:, :T - 4]}, cfg,
                                    cache)

@@ -1,7 +1,7 @@
 """Invariants of the ``repro_torch`` package itself (no JAX involved).
 
-* No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
-  ``repro`` (an AST scan).
+* No module of the port, no example port (``examples/torch_*.py``), and
+  not ``chip_smoke.py``, imports ``jax`` or ``repro`` (an AST scan).
 * Entry points run on the card unless the caller asks for the CPU: the
   engine and the serving driver raise without CUDA.
 * Dispatch goes by the tensor's device alone: a CPU tensor never reaches
@@ -54,6 +54,7 @@ def _imported_roots(path: Path) -> set:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + sorted((ROOT / "examples").glob("torch_*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
@@ -187,7 +188,7 @@ def test_lm_config_and_unported_parts_raise():
                                                    2560, 49152)
     assert cfg.tie_embeddings and cfg.reduced().n_kv_heads == 1
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        serve.build_cfg("olmoe_1b_7b", "tiny")
+        serve.build_cfg("deepseek_v2_lite_16b", "tiny")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         lm.forward_train({}, {}, cfg, qat=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
