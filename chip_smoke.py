@@ -15,12 +15,16 @@
    splits), also at the dense LM configs' widest linears and untied
    heads; ``sparse_matvec`` also at Gemma3-1B's; both at OLMoE-1B-7B's
    expert linears (M = the expert queue's cap: 160, 80, 16 for the 1024-,
-   512- and 64-token buckets, 8 in decode) and attention linears;
+   512- and 64-token buckets, 8 in decode) and attention linears, and at
+   DeepSeek-V2-Lite-16B's expert linears (cap 120 and 8), ``cfmm_matmul``
+   also at its MLA projections (q, kv_down, k_up / v_up, o at 1024
+   tokens);
    ``flash_attention`` in bf16 and f32 at SmolLM-360M's prefill shapes,
    rectangular Tq < Tk, a non-causal Tk = 1500, a Gemma3-like window and
    Dv != D, and in bf16 at the prefill shapes of StableLM-3B (D = 80),
    Gemma3-1B (D = 256, window 512 and none), Phi-3-medium and
-   OLMoE-1B-7B (D = 128) at T = 1024, within ``FLASH_TOL``; prints the
+   OLMoE-1B-7B (D = 128) and DeepSeek-V2-Lite's MLA (D = 192, Dv = 128)
+   at T = 1024, within ``FLASH_TOL``; prints the
    variant each shape runs (flash: the tensor-core ``mma`` or the
    CUDA-core ``fma`` kernel; ``sparse_matvec``: ``rows`` or ``split`` and
    its split over K); times each (median of CUDA-event timings of
@@ -96,20 +100,26 @@
    in ``int8``, ``sparse_cfmm`` and ``dense`` (8 requests of 37-1000
    prompt tokens, 16 new tokens each), Gemma3-1B in ``dense``, ``int8``
    and ``sparse_cfmm``, StableLM-3B and Phi-3-medium-14B in ``dense`` and
-   ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), and the
-   MoE OLMoE-1B-7B in ``dense``, ``int8`` and ``sparse_cfmm`` (2 requests
-   of 37 and 777 tokens, 2 new tokens each: one decode step), 4 slots.
+   ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), the MoE
+   OLMoE-1B-7B in ``dense``, ``int8`` and ``sparse_cfmm`` and the MLA +
+   MoE DeepSeek-V2-Lite-16B (published widths and depth; its dense first
+   layer, 64 routed experts top-6 beside 2 shared) in ``dense`` and
+   ``int8`` (2 requests of 37 and 777 tokens, 2 new tokens each: one
+   decode step), 4 slots.
    Checks one ``flash_attention`` launch per layer and request, and per
    forward one ``cfmm_matmul`` (``int8``) or ``sparse_matvec``
    (``sparse_cfmm``) per linear (``lm_linears``: 7 per dense layer, 4 + 3
-   per expert in an MoE layer, and the untied head), the
+   per expert in an MoE layer, and the untied head; MLA's 5 in a
+   prefill and 3 in a decode step, whose absorbed path takes k_up and
+   v_up as dense weights: 5209 and 5155 per DeepSeek forward), the
    first prefills' logits against the CPU's plain forward of the same
    tree (SmolLM two, Gemma3 one; the others are too large for a CPU
    forward in the time), and the logits and greedy tokens against a card
    run with the plain versions of every kernel of the path substituted,
-   all within ``LM_LOGIT_BOUND`` (StableLM's and Phi-3's ``int8`` decode
-   steps within their ``LM_DECODE_BOUNDS``, with the witnesses of where
-   that spread comes from: ``decode_witnesses``); in every compiled mode
+   all within ``LM_LOGIT_BOUND`` (StableLM's, Phi-3's and DeepSeek's
+   ``int8`` decode steps within their ``LM_DECODE_BOUNDS``, with the
+   witnesses of where that spread comes from: ``decode_witnesses``, in
+   an MoE stack each pair of runs on one routing); in every compiled mode
    also against a card run with only the linears' plain version (the
    float64 product) substituted, which must be equal to the bit, and in
    ``int8`` that run's profile beside the kernel run's (which must show
@@ -123,7 +133,8 @@
    the witness of a spread past the bounds: the kernel run on the plain
    run's picks replayed (``RouteRecorder``), held to the bounds;
    reports prefill and decode tokens/s, one profiled run's idle share
-   and the peak device memory of each path;
+   (device time summed from the profiler's raw events), the ``int8``
+   compile's peak and the peak device memory of each path;
 5. runs the six example ports (``examples/torch_*.py``) from ``main``
    on the card at their default flags: each one's own checks and "OK"
    line, and the launch counters of the kernels on its path;
@@ -326,7 +337,18 @@ CFMM_SHAPES = [("head", 2, 2048, 1000), ("head", 2, 1280, 1000),
     (f"OLMoE expert {name} cap={M}", M, K, N)
     for M in (160, 80, 16, 8)
     for name, K, N in (("gate/up", 2048, 1024), ("down", 1024, 2048))] + [
-    ("OLMoE q/k/v/o", 1024, 2048, 2048)]
+    ("OLMoE q/k/v/o", 1024, 2048, 2048)] + [
+    # DeepSeek-V2-Lite-16B: each routed expert's linears on its queue (cap
+    # 120 at the 1024-token bucket, 8 in decode and at 64 tokens) and the
+    # MLA projections at 1024 tokens: q (2048 x 16 heads x 192), kv_down
+    # (2048 x 512 + 64), k_up / v_up (512 x 16 heads x 128) and o
+    (f"DeepSeek expert {name} cap={M}", M, K, N)
+    for M in (120, 8)
+    for name, K, N in (("gate/up", 2048, 1408), ("down", 1408, 2048))] + [
+    ("DeepSeek MLA q", 1024, 2048, 3072),
+    ("DeepSeek MLA kv_down", 1024, 2048, 576),
+    ("DeepSeek MLA k_up/v_up", 1024, 512, 2048),
+    ("DeepSeek MLA o", 1024, 2048, 2048)]
 
 
 def conv_case(spec, dev, gen):
@@ -690,7 +712,11 @@ SPARSE_SHAPES = [("head", 2, 2048, 1000), ("LM q/o", 1024, 960, 960),
     (f"OLMoE expert {name} cap={M}", M, K, N)
     for M in (160, 80, 16, 8)
     for name, K, N in (("gate/up", 2048, 1024), ("down", 1024, 2048))] + [
-    ("OLMoE q/k/v/o", 1024, 2048, 2048)]
+    ("OLMoE q/k/v/o", 1024, 2048, 2048)] + [
+    # DeepSeek-V2-Lite-16B's routed expert linears (cap rows)
+    (f"DeepSeek expert {name} cap={M}", M, K, N)
+    for M in (120, 8)
+    for name, K, N in (("gate/up", 2048, 1408), ("down", 1408, 2048))]
 
 
 def check_sparse_matvec(label, M, K, N, dev, gen):
@@ -757,6 +783,10 @@ LM_FLASH_SHAPES = [
      None),
     ("OLMoE-1B-7B prefill T=1024", 1, 16, 1, 1024, 1024, 128, 128, True,
      None),
+    # MLA's expanded prefill: q.k over qk_nope + qk_rope = 192, p.v over
+    # v_dim = 128 (the fma kernel: 192 is no mma instance)
+    ("DeepSeek-V2-Lite prefill T=1024", 1, 16, 1, 1024, 1024, 192, 128,
+     True, None),
 ]
 # kernel against plain version on the card (as tests/test_torch_kernels_
 # cuda.py): the sums run in other orders and the kernel's p is relative
@@ -1585,6 +1615,7 @@ DENSE_LM_NEW = 8
 # OLMoE-1B-7B: every forward runs 3137 linears (3 x 64 experts x 16
 # layers, the attention and the head), about 1 s of host per forward in
 # the compiled modes; 2 requests (buckets 64 and 1024), 2 new tokens each
+# (one decode step); DeepSeek-V2-Lite-16B takes the same traffic
 OLMOE_PROMPTS = (37, 777)
 OLMOE_NEW = 2
 LM_MAX_SEQ = 1024 + 16 + 8
@@ -1601,6 +1632,9 @@ LM_PATHS = [
     # in the time
     ("olmoe_1b_7b", ("dense", "int8", "sparse_cfmm"), OLMOE_PROMPTS,
      OLMOE_NEW, 0),
+    # MLA on the MoE FFN: f32 weights are 58.5 GiB, the int8 tree 14.6 GiB
+    ("deepseek_v2_lite_16b", ("dense", "int8"), OLMOE_PROMPTS, OLMOE_NEW,
+     0),
 ]
 # the kernel each compiled mode's linears launch
 LM_LINEAR = {"int8": "cfmm_matmul", "sparse_cfmm": "sparse_matvec"}
@@ -1612,9 +1646,13 @@ PUBLISHED = {
     "stablelm_3b": (32, 2560, 32, 32, 80, 6912, 50304),
     "phi3_medium_14b": (40, 5120, 40, 10, 128, 17920, 100352),
     "olmoe_1b_7b": (16, 2048, 16, 16, 128, 1024, 50304),
+    "deepseek_v2_lite_16b": (27, 2048, 16, 16, 192, 10944, 102400),
 }
-# (n_experts, top_k, d_ff_expert) of the MoE configs, as published
-PUBLISHED_MOE = {"olmoe_1b_7b": (64, 8, 1024)}
+# (n_experts, top_k, d_ff_expert, n_shared) of the MoE configs, and
+# (kv_lora, qk_nope, qk_rope, v_dim) of the MLA ones, as published
+PUBLISHED_MOE = {"olmoe_1b_7b": (64, 8, 1024, 0),
+                 "deepseek_v2_lite_16b": (64, 6, 1408, 2)}
+PUBLISHED_MLA = {"deepseek_v2_lite_16b": (512, 128, 64, 128)}
 # max |dlogit| allowed between two forwards of the same tokens: the card
 # against the CPU's plain versions, and the kernels against their plain
 # versions substituted on the card.  Both sides compute the same function
@@ -1638,9 +1676,15 @@ LM_LOGIT_BOUND = 0.5
 # leaves 0.65 / 0.64; one SDPA call as the attention sits 0.65-0.85 from
 # both runs.  A planted fault (one lost 64-key tile) reads 2.2-3.7 on
 # those decode steps.  Held to 1.0: 1.17x the largest healthy reading,
-# below half the planted one.  Every other decode step, and every
-# prefill, keeps LM_LOGIT_BOUND.
-LM_DECODE_BOUNDS = {"stablelm_3b/int8": 1.0, "phi3_medium_14b/int8": 1.0}
+# below half the planted one.  DeepSeek-V2-Lite-16B's int8 decode step
+# reads 0.5273 (logits of std 0.88) on the plain run's routing replayed,
+# with every witness on one routing: the plain step on the kernel's
+# cache exact; its 37-token slot's latent pad rows swapped in move the
+# step by 0.6094; one slot 0.207; a per-row scale 0.5557; SDPA 0.5962
+# from both runs; the lost tile 1.0742 / 2.7344 (H100 80GB HBM3, 700 W).
+# Every other decode step, and every prefill, keeps LM_LOGIT_BOUND.
+LM_DECODE_BOUNDS = {"stablelm_3b/int8": 1.0, "phi3_medium_14b/int8": 1.0,
+                    "deepseek_v2_lite_16b/int8": 1.0}
 # max |dlogit| of a bucketed dense prefill against the unpadded one on
 # the card: measured 0 to 0.0703 (H100 80GB HBM3, 700 W; SmolLM, Gemma3,
 # StableLM, Phi-3 at 37 -> 64 and 777 -> 1024 tokens), held with 2x
@@ -1652,16 +1696,20 @@ LM_BUCKET_BOUND = 0.15
 LOOSE_CAPACITY = 16.0
 
 
-def lm_linears(cfg) -> int:
-    """The linears one forward runs: per layer q, k, v, o and the FFN's
-    gate, up and down, three per expert in an MoE layer (every expert
-    runs on its queue, empty rows too, as JAX's vmap runs them), and an
+def lm_linears(cfg, decode=False) -> int:
+    """The linears one forward runs: per layer the attention's (q, k, v,
+    o; MLA's q, kv_down, k_up, v_up and o in a prefill, and in a decode
+    step q, kv_down and o: the absorbed path takes k_up and v_up as
+    dense weights) and the FFN's gate, up and down, three per expert in
+    an MoE layer (every expert runs on its queue, empty rows too, as
+    JAX's vmap runs them) and three for the shared experts, and an
     untied head."""
+    attn = (3 if decode else 5) if cfg.mla else 4
     n = 0
     for sig in cfg.layer_sigs():
         experts = (cfg.moe.n_experts + (cfg.moe.n_shared > 0)
                    if sig["moe"] else 1)
-        n += 4 + 3 * experts
+        n += attn + 3 * experts
     return n + (0 if cfg.tie_embeddings else 1)
 
 
@@ -1892,42 +1940,51 @@ def profile_lm(make_engine, requests, label):
     torch.cuda.synchronize()
     # device activity only: a run is ~270k host ops, whose records would
     # cost more than the run
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(requests())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = device_kernels(prof)
     if not events:
         print(f"[profile] {label}: wall {wall_ms:.1f} ms; device time not "
               "measured (the profiler saw no kernels)", flush=True)
         return None
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    ours_ms = sum(e.self_device_time_total for e in events
-                  if any(k in e.key for k in OUR_KERNELS)) / 1e3
+    busy_ms = sum(ms for ms, _ in events.values())
+    ours_ms = sum(ms for key, (ms, _) in events.items()
+                  if any(k in key for k in OUR_KERNELS))
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%; the port's kernels "
           f"{ours_ms:.2f} ms of it; device launches "
-          f"{sum(e.count for e in events)}", flush=True)
-    f64_ms = sum(e.self_device_time_total for e in events
-                 if f64_gemm(e.key)) / 1e3
-    copy_ms = sum(e.self_device_time_total for e in events
-                  if "direct_copy" in e.key) / 1e3
+          f"{sum(n for _, n in events.values())}", flush=True)
+    f64_ms = sum(ms for key, (ms, _) in events.items() if f64_gemm(key))
+    copy_ms = sum(ms for key, (ms, _) in events.items()
+                  if "direct_copy" in key)
     print(f"[profile] {label}: float64 GEMM {f64_ms:.3f} ms, direct_copy "
           f"{copy_ms:.3f} ms", flush=True)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
-              f"x{e.count:5d}  {e.key[:120]}", flush=True)
+    top = sorted(events.items(), key=lambda kv: -kv[1][0])[:8]
+    for key, (ms, n) in top:
+        print(f"[profile]   {ms:8.3f} ms x{n:5d}  {key[:120]}", flush=True)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, ours_ms=ours_ms,
                 idle=1 - busy_ms / wall_ms, f64_gemm_ms=f64_ms,
                 direct_copy_ms=copy_ms,
-                top=[(e.key[:120], e.self_device_time_total / 1e3, e.count)
-                     for e in top])
+                top=[(key[:120], ms, n) for key, (ms, n) in top])
+
+
+def device_kernels(prof) -> dict:
+    """name -> (device ms, launches) of the device activity a profiler
+    recorded (kernels, copies, sets), summed from its raw events: the
+    profiler's per-event Python records (``key_averages``) cost ~0.2 ms
+    an event, ~50 s for one of DeepSeek's ``int8`` runs."""
+    out = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA \
+                and e.duration_ns() > 0:
+            acc = out[e.name()]
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def gib(n_bytes) -> str:
@@ -2012,8 +2069,13 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
            cfg.head_dim, cfg.d_ff, cfg.vocab) == PUBLISHED[arch],
           f"{arch}: not the published full width")
     if arch in PUBLISHED_MOE:
-        check((cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert)
-              == PUBLISHED_MOE[arch], f"{arch}: not the published MoE")
+        check((cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
+               cfg.moe.n_shared) == PUBLISHED_MOE[arch],
+              f"{arch}: not the published MoE")
+    if arch in PUBLISHED_MLA:
+        m = cfg.mla
+        check((m.kv_lora, m.qk_nope, m.qk_rope, m.v_dim)
+              == PUBLISHED_MLA[arch], f"{arch}: not the published MLA")
     requests = lambda: lm_requests(cfg, prompts, new)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2029,14 +2091,22 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
           f"{gib(torch.cuda.get_device_properties(0).total_memory)}",
           flush=True)
     results = {}
+    seen_peak = init_peak                # the peak from init on, over resets
     for i, mode in enumerate(modes):
         label = f"{arch}/{mode}"
+        seen_peak = max(seen_peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
         t0 = t_mode = time.perf_counter()
         tree = ensure_compiled(params, mode, 0.8)
         torch.cuda.synchronize()
         t_compile = time.perf_counter() - t0
+        compile_peak = torch.cuda.max_memory_allocated()
         linear = LM_LINEAR.get(mode)
         if linear:
+            print(f"[lm] {label}: compile peak {gib(compile_peak)} (the f32 "
+                  f"tree and the compiled one) of "
+                  f"{gib(torch.cuda.get_device_properties(0).total_memory)}",
+                  flush=True)
             check_card_compile(params, tree, cfg, mode, label)
         if i == len(modes) - 1:
             params = None                    # the last mode: one tree left
@@ -2058,12 +2128,15 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         wall = time.perf_counter() - t0
         counts = {name: kern.launches for name, kern in kernels.items()}
         n_fwd = len(rec.calls)
+        n_dec = sum(c[0] == "decode" for c in rec.calls)
         want = {"flash_attention": cfg.n_layers * len(prompts)}
         if linear:
-            want[linear] = lm_linears(cfg) * n_fwd
+            want[linear] = (lm_linears(cfg) * (n_fwd - n_dec)
+                            + lm_linears(cfg, decode=True) * n_dec)
         for name, got in counts.items():
             check(got == want.get(name, 0), f"{label}: {got} {name} "
-                  f"launches in {n_fwd} forwards, want {want.get(name, 0)}")
+                  f"launches in {n_fwd} forwards ({n_dec} decode), want "
+                  f"{want.get(name, 0)}")
         for r in reqs:
             check(r.done and len(r.tokens_out) == new
                   and all(0 <= t < cfg.vocab for t in r.tokens_out),
@@ -2145,11 +2218,11 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         dec_bound = LM_DECODE_BOUNDS.get(label, LM_LOGIT_BOUND)
         held = dict(prefill=pre_d, decode=dec_d, margins=margins,
                     streams_equal=streams_equal)
-        routing = None
+        routing = rec_replay = None
         if cfg.moe is not None:
-            routing = moe_routing(make, requests, kernels, cfg, label, rec,
-                                  rec_plain, route_k, route_p, n_fwd,
-                                  plain_reqs)
+            routing, rec_replay = moe_routing(
+                make, requests, kernels, cfg, label, rec, rec_plain, route_k,
+                route_p, n_fwd, plain_reqs, snapshot=witnessed)
             if (max(pre_d) > LM_LOGIT_BOUND or dec_d > dec_bound
                     or any(m > 2 * LM_LOGIT_BOUND for m in margins)):
                 # a routing pick turned by a rounding: the witness, the
@@ -2181,11 +2254,15 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
             check(prof is None or prof["f64_gemm_ms"] == 0.0,
                   f"{label}: the profile still shows a float64 GEMM")
         if witnessed:
-            witnesses = decode_witnesses(make, requests, kernels,
-                                         substituted, cfg, prompts, label,
-                                         dec_bound, rec, rec_plain)
+            # an MoE stack is witnessed on the plain run's routing: the
+            # kernel run that replayed it, and every pair of runs below
+            # making one routing
+            witnesses = decode_witnesses(
+                make, requests, kernels, substituted, cfg, prompts, label,
+                dec_bound, rec_replay or rec, rec_plain,
+                route=route_p if cfg.moe is not None else None)
         del rec_plain
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(seen_peak, torch.cuda.max_memory_allocated())
         print(f"[lm] {label}: peak device memory {gib(peak)} (init "
               f"{gib(init_peak)}) of "
               f"{gib(torch.cuda.get_device_properties(0).total_memory)}; "
@@ -2202,8 +2279,9 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
                        logit_std=std, margins=margins),
             routing=routing, bucketed_vs_unpadded=bucketed, profile=prof,
             plain_linear=plain_linear, decode_witnesses=witnesses,
-            peak_bytes=peak, init_peak_bytes=init_peak)
-        del eng, rec, tree, make, route_k, route_p
+            peak_bytes=peak, init_peak_bytes=init_peak,
+            compile_peak_bytes=compile_peak if linear else None)
+        del eng, rec, tree, make, route_k, route_p, rec_replay
         torch.cuda.empty_cache()
     return results
 
@@ -2216,7 +2294,8 @@ def check_card_compile(params, tree, cfg, mode, label):
     from repro_torch import nn
     from repro_torch.core.compiled_linear import _compile_leaf
     block, ctree = params["template"][0], tree["template"][0]
-    leaves = [("k", block["mixer"]["k"], ctree["mixer"]["k"], ...)]
+    attn = "kv_down" if cfg.mla else "k"
+    leaves = [(attn, block["mixer"][attn], ctree["mixer"][attn], ...)]
     if cfg.moe is not None:
         leaves.append(("expert down", block["ffn"]["experts"]["down"],
                        ctree["ffn"]["experts"]["down"], (0, slice(0, 2))))
@@ -2231,12 +2310,14 @@ def check_card_compile(params, tree, cfg, mode, label):
 
 
 def moe_routing(make, requests, kernels, cfg, label, rec, rec_plain,
-                route_k, route_p, n_fwd, plain_reqs):
+                route_k, route_p, n_fwd, plain_reqs, snapshot=False):
     """An MoE path's routing: the share of (layer, token, choice) picks
     equal between the kernel run and the plain-version run, and the
     witness of where a logit spread past the bounds comes from: the
     kernel run again with the plain run's picks replayed
-    (``RouteRecorder(replay=)``) against the plain run."""
+    (``RouteRecorder(replay=)``) against the plain run.  Returns the
+    summary and that run's recorder (with ``snapshot``, holding its first
+    decode step's batch and cache)."""
     n_moe = sum(bool(sig["moe"]) for sig in cfg.layer_sigs())
     check(len(route_k.picks) == len(route_p.picks) == n_fwd * n_moe,
           f"{label}: {len(route_k.picks)} routed layer calls in {n_fwd} "
@@ -2245,7 +2326,8 @@ def moe_routing(make, requests, kernels, cfg, label, rec, rec_plain,
         rec.calls, rec_plain.calls, route_k, route_p, n_moe)
     replay = RouteRecorder(replay=route_p)
     rec_replay, replay_reqs = substituted_run(make, requests, kernels,
-                                              replay, [], label)
+                                              replay, [], label,
+                                              snapshot=snapshot)
     check(all(torch.equal(a, b) for a, b in zip(replay.picks,
                                                  route_p.picks)),
           f"{label}: the replayed run made other picks")
@@ -2265,7 +2347,8 @@ def moe_routing(make, requests, kernels, cfg, label, rec, rec_plain,
     return dict(picks=n_picks, equal_share=share,
                 kept_min=min(kept), kept_max=max(kept),
                 replayed=dict(prefill=r_pre, decode=r_dec, tokens=r_tok,
-                              margins=r_margins, streams_equal=r_streams))
+                              margins=r_margins, streams_equal=r_streams)
+                ), rec_replay
 
 
 def substituted_run(make, requests, kernels, subs, names, label,
@@ -2319,7 +2402,7 @@ def first_decode_rows(calls_a, calls_b):
 
 
 def decode_witnesses(make, requests, kernels, substituted, cfg, prompts,
-                     label, bound, kern, plain):
+                     label, bound, kern, plain, route=None):
     """Where the decode spread of an ``LM_DECODE_BOUNDS`` path comes from,
     on the card, each reading beside the kernel-vs-plain one (``kern``
     and ``plain``: the two runs' recorders, with their snapshots):
@@ -2336,14 +2419,28 @@ def decode_witnesses(make, requests, kernels, substituted, cfg, prompts,
       scale);
     - a third attention, one SDPA call, against each run;
     - a planted fault, the attention losing one 64-key tile, which the
-      bound must fail."""
+      bound must fail.
+
+    In an MoE stack (``route``: the plain run's routing) ``kern`` is the
+    kernel run on the plain run's picks, and each pair of runs makes one
+    routing: the kernel side replays the picks its plain partner made
+    (the single decode steps, the picks of the plain run's step; SDPA
+    and the lost tile, the plain run's)."""
+    from types import SimpleNamespace
+
     from repro_torch.models import lm
     from repro_torch.serving.engine import _bucket_len
     subs = lambda **attn: plain_versions(substituted, **attn)
+    routed = (lambda replay=None: RouteRecorder(replay=replay)) if route \
+        else (lambda replay=None: contextlib.nullcontext())
     healthy = first_decode_rows(plain.calls, kern.calls)
     (batch, cache_k), (_, cache_p) = kern.snapshot, plain.snapshot
-    first_k = next(c for c in kern.calls if c[0] == "decode")[2]
-    with subs():
+    step = next(i for i, c in enumerate(kern.calls) if c[0] == "decode")
+    first_k = kern.calls[step][2]
+    n_moe = sum(bool(sig["moe"]) for sig in cfg.layer_sigs())
+    step_picks = SimpleNamespace(
+        picks=route.picks[step * n_moe:(step + 1) * n_moe] if route else [])
+    with subs(), routed(step_picks):
         teacher, _ = lm.forward_decode(kern.engine.params, batch, cfg,
                                        _clone_tree(cache_k))
     teacher = float((teacher[:, -1].float() - first_k).abs().max())
@@ -2352,25 +2449,31 @@ def decode_witnesses(make, requests, kernels, substituted, cfg, prompts,
         for slot, L in enumerate(prompts):
             end = _bucket_len(L, LM_MAX_SEQ)
             leaf_k[:, slot, L:end] = leaf_p[:, slot, L:end]
-    swapped, _ = lm.forward_decode(kern.engine.params, batch, cfg, cache_k)
+    with routed(step_picks):
+        swapped, _ = lm.forward_decode(kern.engine.params, batch, cfg,
+                                       cache_k)
     swapped = float((swapped[:, -1].float() - first_k).abs().max())
     del kern.snapshot, plain.snapshot, cache_k, cache_p
-    one_k, _ = substituted_run(make, requests, kernels,
-                               contextlib.nullcontext(), [], label, slots=1)
-    one_p, _ = substituted_run(make, requests, kernels, subs(), substituted,
-                               label, slots=1)
+
+    def pair(slots=LM_SLOTS):
+        """A plain run and a kernel run on its routing."""
+        rp = routed()
+        p, _ = substituted_run(make, requests, kernels, _entered(subs(), rp),
+                               substituted, label, slots=slots)
+        k, _ = substituted_run(make, requests, kernels,
+                               routed(rp if route else None), [], label,
+                               slots=slots)
+        return p, k
+    one_p, one_k = pair(slots=1)
     one_pre, one_dec, _, _ = compare_runs(one_p.calls, one_k.calls)
     with per_row_scales():
-        row_k, _ = substituted_run(make, requests, kernels,
-                                   contextlib.nullcontext(), [], label)
-        row_p, _ = substituted_run(make, requests, kernels, subs(),
-                                   substituted, label)
+        row_p, row_k = pair()
     sdpa, _ = substituted_run(make, requests, kernels,
-                              subs(attention=sdpa_attention), substituted,
-                              label)
+                              _entered(subs(attention=sdpa_attention),
+                                       routed(route)), substituted, label)
     lost, _ = substituted_run(make, requests, kernels,
-                              subs(attention=lost_tile_attention),
-                              substituted, label)
+                              _entered(subs(attention=lost_tile_attention),
+                                       routed(route)), substituted, label)
     lost_pre, _, _, _ = compare_runs(plain.calls, lost.calls)
     out = dict(
         kernel_vs_plain=healthy, teacher_forced=teacher,
@@ -2404,6 +2507,15 @@ def decode_witnesses(make, requests, kernels, substituted, cfg, prompts,
     return out
 
 
+@contextlib.contextmanager
+def _entered(*managers):
+    """The context managers entered together, in order."""
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
 def _clone_tree(t):
     if isinstance(t, dict):
         return {k: _clone_tree(v) for k, v in t.items()}
@@ -2413,17 +2525,19 @@ def _clone_tree(t):
 
 
 def _kv_leaves(cache, path=""):
-    """(path, leaf) of every K/V cache leaf, as (layers, slots, S, KVH, D):
-    a prefix or suffix layer's (slots, S, KVH, D) leaf gets a view with a
-    leading layer axis of 1."""
+    """(path, leaf) of every attention cache leaf (``k``/``v``; MLA's
+    latent ``c_kv`` and ``k_rope``), as (layers, slots, S, ...): a prefix
+    or suffix layer's (slots, S, ...) leaf gets a view with a leading
+    layer axis of 1."""
     if isinstance(cache, dict):
         for k, v in cache.items():
             yield from _kv_leaves(v, f"{path}/{k}")
     elif isinstance(cache, list):
         for i, v in enumerate(cache):
             yield from _kv_leaves(v, f"{path}[{i}]")
-    elif isinstance(cache, torch.Tensor) and cache.ndim >= 4:
-        yield path, cache if cache.ndim == 5 else cache[None]
+    elif isinstance(cache, torch.Tensor) and path.rsplit("/", 1)[-1] in (
+            "k", "v", "c_kv", "k_rope"):
+        yield path, cache if path.startswith("/template") else cache[None]
 
 
 # ---------------------------------------------------------------------------

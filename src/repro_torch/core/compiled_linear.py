@@ -21,8 +21,8 @@ conv kernel like ``values``: as int8 operands they are the same codes.
 Depthwise leaves store dense tap-major ``(k*k, C)`` int8 ``values`` plus
 a per-channel scale in every serve mode (K = k*k rows: a bitmap saves
 nothing there).  Stacked leaves ``(layers, K, N)`` compile slice by
-slice into stacked compiled leaves.  The bytes are equal to the JAX
-package's for the same float weights (tested).
+slice into stacked compiled leaves, each allocated once.  The bytes are
+equal to the JAX package's for the same float weights (tested).
 """
 from __future__ import annotations
 
@@ -126,6 +126,35 @@ def pad_rows8(codes: torch.Tensor) -> torch.Tensor:
     return torch.cat([codes, codes.new_zeros((pad, codes.shape[1]))])
 
 
+def dense_of(w, dtype=torch.float32) -> torch.Tensor:
+    """Dequantize a linear weight leaf, of any form, back to a dense
+    ``(K, N)`` tensor: ``codes * scale`` in ``dtype``, as the JAX package
+    orders it.  MLA's absorbed decode consumes ``k_up`` and ``v_up`` so:
+    algebraically, not as a plain product (models/attention.py)."""
+    if isinstance(w, nn.Param):
+        w = w.value
+    if not isinstance(w, dict):
+        return w.to(dtype)
+    return packed_codes(w).to(dtype) * w["scale"].to(dtype)
+
+
+def packed_codes(w: dict) -> torch.Tensor:
+    """Dense int8 codes ``(K, N)`` of a packed linear leaf: ``values``,
+    ``codes`` or ``bs_codes`` as stored; a bitmap leaf expands
+    (``bitmap_unpack``) and drops the rows ``pad_rows8`` added.  Conv
+    leaves (stored in the kernels' spatial-major tap layout) have no
+    consumer here yet and raise."""
+    if "geom" in w:
+        raise NotImplementedError("packed_codes of a conv leaf is not "
+                                  "ported: only MLA's linear leaves use it")
+    if "bitmap" in w:
+        dense = bitmap_unpack(w["bitmap"], w["values"])
+        if "kdim" in w:                # strip the K % 8 pad
+            dense = dense[:w["kdim"].k]
+        return dense
+    return w.get("codes", w.get("bs_codes", w.get("values")))
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -223,8 +252,9 @@ def _leaf_axes(kind: str, lead, in_ax, out_ax):
 
 def _compile_leaf(p: nn.Param, mode: str, sparsity: float) -> dict:
     """One weight leaf.  A stacked leaf ``(*lead, K, N)`` (the LM's
-    ``layers`` axis) compiles slice by slice and stacks the results, as
-    the JAX package vmaps ``_compile_leaf_2d`` over the leading axes."""
+    ``layers`` axis) compiles slice by slice into outputs allocated at
+    their stacked shapes, as the JAX package vmaps ``_compile_leaf_2d``
+    over the leading axes."""
     w = p.value.float()
     lead, in_ax, out_ax = tuple(p.axes[:-2]), p.axes[-2], p.axes[-1]
     dw = nn.dwconv_geom_of(p.kind)
@@ -240,11 +270,21 @@ def _compile_leaf(p: nn.Param, mode: str, sparsity: float) -> dict:
     geom = nn.conv_geom_of(p.kind)
     conv_k = geom[0] if geom is not None else None
     K = w.shape[-2]
-    slices = [_compile_leaf_2d(wi, mode, sparsity, conv_k)
-              for wi in w.reshape((-1,) + tuple(w.shape[-2:]))]
-    out = {k: torch.stack([o[k] for o in slices]).reshape(
-        tuple(w.shape[:-2]) + tuple(slices[0][k].shape))
-        for k in slices[0]}
+    w2d = w.reshape((-1,) + tuple(w.shape[-2:]))
+    # each output is allocated once at its stacked shape and filled slice
+    # by slice: a list of slices and a stack would hold the largest leaf
+    # twice (DeepSeek-V2-Lite's int8 expert leaf is 4.5 GiB)
+    out = None
+    for i, wi in enumerate(w2d):
+        one = _compile_leaf_2d(wi, mode, sparsity, conv_k)
+        if out is None:
+            out = {k: torch.empty((len(w2d),) + tuple(v.shape),
+                                  dtype=v.dtype, device=v.device)
+                   for k, v in one.items()}
+        for k, v in one.items():
+            out[k][i].copy_(v)
+    out = {k: v.reshape(tuple(w.shape[:-2]) + tuple(v.shape[1:]))
+           for k, v in out.items()}
     packed = {k: nn.Param(v, _leaf_axes(k, lead, in_ax, out_ax))
               for k, v in out.items()}
     if geom is not None:                           # conv weights stay

@@ -16,8 +16,16 @@ a ``length`` counter kept on the host (it only decides where to write
 and which keys are valid, so reading it needs no device sync).
 ``gqa_forward`` writes the prompt (prefill) or the new token (decode)
 into ``k``/``v`` IN PLACE and returns the same tensors with the new
-``length`` — JAX returns updated copies.  MLA and the int8 KV cache are
-not ported (ROADMAP A8).
+``length`` — JAX returns updated copies.
+
+MLA (DeepSeek-V2's latent attention) caches the normalised latent
+``c_kv (B, S_max, kv_lora)`` and the shared rotary key ``k_rope
+(B, S_max, qk_rope)``, written in place the same way.  Its prefill
+expands them into per-head keys and values and runs the flash kernel at
+D = qk_nope + qk_rope, Dv = v_dim; its decode step never expands the
+cache: ``k_up`` is pulled through the query and ``v_up`` through the
+context (the absorbed path, in f32, plain PyTorch as in the JAX
+package).  The int8 KV cache is not ported (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import nn
-from repro_torch.core.compiled_linear import apply_linear
+from repro_torch.core.compiled_linear import apply_linear, dense_of
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init
 
@@ -164,16 +172,108 @@ def gqa_cache_spec(cfg, B, S_max, dtype=torch.bfloat16, device="cpu"):
 
 
 # ---------------------------------------------------------------------------
-# MLA — Multi-head Latent Attention (DeepSeek-V2): not ported
+# MLA — Multi-head Latent Attention (DeepSeek-V2), absorbed decode path
 # ---------------------------------------------------------------------------
 
 def mla_init(gen, cfg):
-    raise NotImplementedError(f"MLA {_A8}")
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    return {
+        "q": nn.linear_param(gen, d, H * (m.qk_nope + m.qk_rope),
+                             ("embed", "heads_q")),
+        "kv_down": nn.linear_param(gen, d, m.kv_lora + m.qk_rope,
+                                   ("embed", "kv_lora")),
+        "kv_norm": rmsnorm_init(gen, m.kv_lora),
+        "k_up": nn.linear_param(gen, m.kv_lora, H * m.qk_nope,
+                                ("kv_lora", "heads_q")),
+        "v_up": nn.linear_param(gen, m.kv_lora, H * m.v_dim,
+                                ("kv_lora", "heads_q")),
+        "o": nn.linear_param(gen, H * m.v_dim, d, ("heads_q", "embed")),
+    }
 
 
 def mla_forward(p, x, cfg, positions, cache=None):
-    raise NotImplementedError(f"MLA {_A8}")
+    """Returns (out, new_cache).  cache: dict(c_kv (B, S_max, kv_lora),
+    k_rope (B, S_max, qk_rope), length: host int32 scalar) or None.  With
+    a cache, T == 1 is a decode step (the absorbed path), T > 1 a prefill
+    (written from position 0, then the expanded path, as without a
+    cache)."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    q = apply_linear(p["q"], x).reshape(B, T, H, m.qk_nope + m.qk_rope)
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    down = apply_linear(p["kv_down"], x)
+    # rmsnorm's own eps (1e-6), not cfg.norm_eps, as the JAX package
+    c_kv = rmsnorm(p["kv_norm"], down[..., :m.kv_lora])        # (B,T,lora)
+    k_rope = apply_rope(down[..., None, m.kv_lora:], positions,
+                        cfg.rope_theta)[:, :, 0]               # (B,T,rope)
+
+    new_cache = None
+    if cache is not None:
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        if T == 1:  # decode: append at the shared length counter
+            idx = int(cache["length"])
+            cc[:, idx:idx + 1] = c_kv.to(cc.dtype)
+            cr[:, idx:idx + 1] = k_rope.to(cr.dtype)
+            new_cache = {"c_kv": cc, "k_rope": cr,
+                         "length": cache["length"] + 1}
+            o = mla_absorbed_attention(p, q_nope, q_rope, cc, cr, idx + 1,
+                                       cfg)
+            out = o.reshape(B, 1, H * m.v_dim).to(x.dtype)
+            return apply_linear(p["o"], out), new_cache
+        cc[:, :T] = c_kv.to(cc.dtype)   # prefill: write the whole prompt
+        cr[:, :T] = k_rope.to(cr.dtype)
+        new_cache = {"c_kv": cc, "k_rope": cr,
+                     "length": torch.tensor(T, dtype=torch.int32)}
+    # expanded path (prefill, or no cache): per-head keys and values; the
+    # shared rotary key is copied to every head (the kernel reads a real
+    # tensor, never a stride-0 view)
+    k_nope = apply_linear(p["k_up"], c_kv).reshape(B, T, H, m.qk_nope)
+    v = apply_linear(p["v_up"], c_kv).reshape(B, T, H, m.v_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, T, H, m.qk_rope)],
+                  dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    o = gqa_attention(qf, k, v, causal=True)
+    return apply_linear(p["o"], o.reshape(B, T, H * m.v_dim)), new_cache
 
 
-def mla_cache_spec(cfg, B, S_max, dtype=torch.bfloat16):
-    raise NotImplementedError(f"MLA {_A8}")
+def mla_absorbed_attention(p, q_nope, q_rope, cc, cr, length, cfg):
+    """One query row against the latent cache, in f32, without expanding
+    it: the scores are ``(q_nope . k_up) . c_kv + q_rope . k_rope`` over
+    sqrt(qk_nope + qk_rope), the output ``(softmax . c_kv) . v_up``.
+    q_nope (B, 1, H, qk_nope), q_rope (B, 1, H, qk_rope); cc/cr the
+    caches; keys at positions < ``length`` (a host int) are valid.
+    Returns (B, 1, H, v_dim) f32."""
+    m = cfg.mla
+    H = cfg.n_heads
+    k_up = dense_of(p["k_up"]).reshape(m.kv_lora, H, m.qk_nope)
+    qa = torch.einsum("bthn,lhn->bthl", q_nope.float(), k_up)  # (B,1,H,lora)
+    s = (torch.einsum("bthl,bsl->bhts", qa, cc.float())
+         + torch.einsum("bthr,bsr->bhts", q_rope.float(), cr.float()))
+    # jnp.sqrt(192), an f32 value, as a device tensor (see decode_attention)
+    sqrt_d = torch.tensor(float(np.sqrt(np.float32(m.qk_nope + m.qk_rope))),
+                          device=s.device)
+    s = s / sqrt_d
+    valid = torch.arange(cc.shape[1], device=s.device) < length
+    w = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhts,bsl->bthl", w, cc.float())
+    v_up = dense_of(p["v_up"]).reshape(m.kv_lora, H, m.v_dim)
+    return torch.einsum("bthl,lhv->bthv", ctx, v_up)
+
+
+def mla_cache_spec(cfg, B, S_max, dtype=torch.bfloat16, device="cpu"):
+    """The latent cache.  An int8 request keeps bf16, as the JAX package
+    does: the latent is already the compressed form."""
+    if dtype == torch.int8:
+        dtype = torch.bfloat16
+    m = cfg.mla
+    axes = ("batch", "kv_seq", None)
+    return {
+        "c_kv": nn.Param(torch.zeros((B, S_max, m.kv_lora), dtype=dtype,
+                                     device=device), axes),
+        "k_rope": nn.Param(torch.zeros((B, S_max, m.qk_rope), dtype=dtype,
+                                       device=device), axes),
+        "length": nn.Param(torch.zeros((), dtype=torch.int32), ()),
+    }

@@ -7,16 +7,18 @@ leading ``layers`` axis, so the two packages' trees match leaf for leaf.
 JAX scans the template (with remat); the port runs it as a Python loop
 over that axis, on views of the stacked tensors.
 
-Ported: GQA stacks (SmolLM, Gemma3, StableLM, Phi-3) with dense or MoE
-FFNs (OLMoE, models/moe.py; ``moe_pattern`` mixes both in one template),
-sliding-window layers, the full forward (``forward_train`` without QAT or
-remat, with the MoE aux summed over the layers), prefill (with the
-serving engine's bucketed ``length`` path) and decode, on compiled or
-dense (float) weight leaves.  Mamba, RWKV, MLA, the encoder-decoder and
-QAT raise ``NotImplementedError`` (ROADMAP A8).
+Ported: GQA stacks (SmolLM, Gemma3, StableLM, Phi-3) and MLA stacks
+(DeepSeek-V2-Lite, with its dense first layer in the prefix) with dense
+or MoE FFNs (OLMoE, models/moe.py; ``moe_pattern`` mixes both in one
+template), sliding-window layers, the full forward (``forward_train``
+without QAT or remat, with the MoE aux summed over the layers), prefill
+(with the serving engine's bucketed ``length`` path) and decode, on
+compiled or dense (float) weight leaves.  Mamba, RWKV, the
+encoder-decoder and QAT raise ``NotImplementedError`` (ROADMAP A8).
 
-Cache counters (``length``, ``pos``) live on the host; ``k``/``v`` live
-with the parameters and are written in place (models/attention.py).
+Cache counters (``length``, ``pos``) live on the host; ``k``/``v`` (MLA:
+``c_kv``/``k_rope``) live with the parameters and are written in place
+(models/attention.py).
 """
 from __future__ import annotations
 
@@ -88,15 +90,14 @@ def _check_ported(cfg: ArchConfig, sig):
         raise NotImplementedError(f"the encoder-decoder {_A8}")
     if sig["kind"] != "attn":
         raise NotImplementedError(f"{sig['kind']} mixers {_A8}")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"MLA {_A8}")
 
 
 def block_init(gen, cfg: ArchConfig, sig, cross=False):
     _check_ported(cfg, sig)
     if cross:
         raise NotImplementedError(f"cross-attention blocks {_A8}")
-    p = {"ln1": _norm_init(gen, cfg), "mixer": attn.gqa_init(gen, cfg),
+    mixer = attn.mla_init if cfg.mla else attn.gqa_init
+    p = {"ln1": _norm_init(gen, cfg), "mixer": mixer(gen, cfg),
          "ln2": _norm_init(gen, cfg),
          "ffn": (moe_mod.moe_init(gen, cfg) if sig["moe"] else
                  ffn_init(gen, cfg.d_model, cfg.d_ff,
@@ -110,8 +111,8 @@ def block_init(gen, cfg: ArchConfig, sig, cross=False):
 def block_cache_init(cfg, sig, B, S_max, cross=False, kv_dtype=None,
                      device="cpu"):
     _check_ported(cfg, sig)
-    return attn.gqa_cache_spec(cfg, B, S_max, kv_dtype or torch.bfloat16,
-                               device)
+    spec = attn.mla_cache_spec if cfg.mla else attn.gqa_cache_spec
+    return spec(cfg, B, S_max, kv_dtype or torch.bfloat16, device)
 
 
 def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
@@ -121,10 +122,14 @@ def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
     one decode step."""
     aux = {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
     h = _norm(p["ln1"], x, cfg)
-    window = cfg.window if sig["attn_type"] == "local" else None
-    out, new_cache = attn.gqa_forward(p["mixer"], h, cfg, positions,
-                                      window=window, causal=causal,
-                                      cache=cache, cross_kv=cross_kv)
+    if cfg.mla:
+        out, new_cache = attn.mla_forward(p["mixer"], h, cfg, positions,
+                                          cache=cache)
+    else:
+        window = cfg.window if sig["attn_type"] == "local" else None
+        out, new_cache = attn.gqa_forward(p["mixer"], h, cfg, positions,
+                                          window=window, causal=causal,
+                                          cache=cache, cross_kv=cross_kv)
     if cfg.post_block_norm:
         out = _norm(p["post_ln1"], out, cfg)
     x = x + out

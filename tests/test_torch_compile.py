@@ -179,3 +179,33 @@ def test_spatial_major_round_trip(k, c_in):
     np.testing.assert_array_equal(j, t.numpy())
     np.testing.assert_array_equal(
         tref.from_spatial_major(t, k, c_in).numpy(), codes)
+
+
+def _compile_leaf_list_then_stack(p, mode, sparsity):
+    """The stacked-leaf compile ``_compile_leaf`` replaced (a list of
+    per-slice results, then ``torch.stack``: two copies of the largest
+    output at its peak), for linear leaves: the bytes to hold it to."""
+    w = p.value.float()
+    slices = [tcl._compile_leaf_2d(wi, mode, sparsity)
+              for wi in w.reshape((-1,) + tuple(w.shape[-2:]))]
+    return {k: torch.stack([o[k] for o in slices]).reshape(
+        tuple(w.shape[:-2]) + tuple(slices[0][k].shape)) for k in slices[0]}
+
+
+@pytest.mark.parametrize("mode", ["int8", "cfmm", "sparse_cfmm",
+                                  "bitserial"])
+def test_stacked_leaf_compiles_like_list_then_stack(mode):
+    """A (layers, experts, K, N) leaf compiles slice by slice into
+    outputs allocated once: the same keys, shapes, dtypes and bytes as
+    the list-then-stack compile."""
+    gen = torch.Generator().manual_seed(7)
+    p = tnn.Param(torch.randn((3, 2, 64, 48), generator=gen),
+                  ("layers", "experts_stack", "embed", "ffn_in"), "linear")
+    got = tcl._compile_leaf(p, mode, 0.8)
+    want = _compile_leaf_list_then_stack(p, mode, 0.8)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].axes[:2] == ("layers", "experts_stack"), k
+        g = got[k].value
+        assert g.dtype == v.dtype and g.shape == v.shape, k
+        assert torch.equal(g, v), k

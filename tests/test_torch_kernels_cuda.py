@@ -714,11 +714,17 @@ def test_cfmm_matmul_matches_plain(dev, M, K, N, with_scale):
 @pytest.mark.parametrize("M,K,N", [(4, 960, 2560), (4, 2560, 960),
                                    (64, 960, 2560), (1024, 960, 960),
                                    (1024, 960, 320), (1024, 960, 2560),
-                                   (1024, 2560, 960)])
+                                   (1024, 2560, 960),
+                                   # DeepSeek-V2-Lite: expert queues, MLA
+                                   (120, 2048, 1408), (8, 1408, 2048),
+                                   (1024, 2048, 576), (1024, 512, 2048)])
 @pytest.mark.parametrize("with_scale", [False, True])
 def test_cfmm_matmul_matches_plain_at_lm_shapes(dev, M, K, N, with_scale):
     """SmolLM-360M's linears in int8: decode slots (M = 4) and prefill
-    buckets; the int32 product equal, the scaled output one rounding."""
+    buckets; DeepSeek-V2-Lite's routed experts on their queues (cap 120
+    at 1024 tokens, 8 in decode) and MLA's kv_down and k_up / v_up at
+    1024 tokens; the int32 product equal, the scaled output one
+    rounding."""
     g = torch.Generator().manual_seed(M + K + N)
     leaf = _compile_leaf_2d(torch.randn((K, N), generator=g), "int8", 0.8)
     x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
@@ -864,6 +870,8 @@ def _flash_inputs(B, KVH, G, Tq, Tk, D, Dv, dtype, dev, seed=0):
     # Gemma3-like window, MLA's Dv != D, G = 32 (one position per tile)
     (1, 1, 4, 1024, 1024, 256, 256, True, 512),
     (1, 2, 2, 100, 100, 192, 128, True, None),
+    # DeepSeek-V2-Lite's MLA prefill at the 1024 bucket: D = 192, Dv = 128
+    (1, 16, 1, 1024, 1024, 192, 128, True, None),
     (1, 1, 32, 33, 50, 32, 32, True, 9),
     # the mma kernel's edges: Tq no multiple of 16 or 64, Tq < Tk, the
     # causal edge inside a warp's 16 rows (G = 1: one position per row;

@@ -9,11 +9,11 @@
   from ``dense`` to ``int8`` to ``sparse_cfmm``.  The bucketed
   (end-padded) prefill equals the unpadded one bit for bit in ``dense``:
   logits, ``pos``, the length counters and the KV rows below the length.
-* ``tests/test_decode.py`` for the port's five configs at ``reduced()``
-  (OLMoE's MoE at JAX's loose capacity, as there): a prefill and four
-  decode steps against ``forward_train`` of the whole sequence, within
-  0.06 of max |logit| and greedy tokens equal wherever the full
-  forward's margin exceeds 0.05 of it.
+* ``tests/test_decode.py`` for the port's six configs at ``reduced()``
+  (OLMoE's and DeepSeek's MoE at JAX's loose capacity, as there): a
+  prefill and four decode steps against ``forward_train`` of the whole
+  sequence, within 0.06 of max |logit| and greedy tokens equal wherever
+  the full forward's margin exceeds 0.05 of it.
 * ``nn.vmap_init`` fills its preallocated stacks with the values the
   list-then-``torch.stack`` version gave, bit for bit.
 """
@@ -199,6 +199,11 @@ def _prefill(cfg, params, toks, width, S=64):
     return lm.forward_prefill(params, batch, cfg, cache)
 
 
+# the sequence axis of each cache leaf: k/v (..., S, KVH, D), MLA's
+# latent c_kv and rotary k_rope (..., S, C)
+SEQ_AXIS = {"k": -3, "v": -3, "c_kv": -2, "k_rope": -2}
+
+
 def _kv_layers(cache):
     return ([c for c in cache["prefix"]] + [c for c in cache["template"]]
             + [c for c in cache["suffix"]])
@@ -217,10 +222,11 @@ def _loose_capacity(monkeypatch):
 def test_dense_bucketed_prefill_bit_exact(reduced, arch, monkeypatch):
     """In ``dense`` nothing couples a row to the pad rows (no shared
     activation scale), and causal attention hides them: the bucketed
-    prefill's logits and the KV rows below the length are the unpadded
-    prefill's, bit for bit (Gemma3: a 37-token prompt, past the reduced
-    window of 32).  OLMoE's pad rows queue behind the real ones, so at a
-    capacity that keeps every pick they displace none."""
+    prefill's logits and the KV rows (MLA: the latent rows) below the
+    length are the unpadded prefill's, bit for bit (Gemma3: a 37-token
+    prompt, past the reduced window of 32).  OLMoE's pad rows queue
+    behind the real ones, so at a capacity that keeps every pick they
+    displace none."""
     _loose_capacity(monkeypatch)
     cfg, params = reduced(arch)
     for L, width in ((13, 16), (37, 64)):
@@ -231,9 +237,12 @@ def test_dense_bucketed_prefill_bit_exact(reduced, arch, monkeypatch):
         assert torch.equal(cb["pos"], torch.tensor([L], dtype=torch.int32))
         for a, b in zip(_kv_layers(ca), _kv_layers(cb)):
             assert torch.equal(a["length"], b["length"])
-            for key in ("k", "v"):
-                assert torch.equal(a[key][..., :L, :, :],
-                                   b[key][..., :L, :, :]), (arch, L, key)
+            keys = set(a) - {"length"}
+            assert keys in ({"k", "v"}, {"c_kv", "k_rope"}), keys
+            for key in keys:
+                rows = a[key].narrow(SEQ_AXIS[key], 0, L)
+                assert torch.equal(rows, b[key].narrow(SEQ_AXIS[key], 0, L)
+                                   ), (arch, L, key)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
