@@ -24,7 +24,9 @@
    Dv != D, and in bf16 at the prefill shapes of StableLM-3B (D = 80),
    Gemma3-1B (D = 256, window 512 and none), Phi-3-medium and
    OLMoE-1B-7B (D = 128) and DeepSeek-V2-Lite's MLA (D = 192, Dv = 128)
-   at T = 1024, within ``FLASH_TOL``; prints the
+   at T = 1024, within ``FLASH_TOL``; ``cfmm_matmul`` also at the SSM
+   paths' linears (Mamba's x_proj and dt_proj, RWKV's low-rank mix and
+   decay projections, Jamba's experts, both 65536-token heads); prints the
    variant each shape runs (flash: the tensor-core ``mma`` or the
    CUDA-core ``fma`` kernel; ``sparse_matvec``: ``rows`` or ``split`` and
    its split over K); times each (median of CUDA-event timings of
@@ -105,13 +107,18 @@
    MoE DeepSeek-V2-Lite-16B (published widths and depth; its dense first
    layer, 64 routed experts top-6 beside 2 shared) in ``dense`` and
    ``int8`` (2 requests of 37 and 777 tokens, 2 new tokens each: one
-   decode step), 4 slots.
-   Checks one ``flash_attention`` launch per layer and request, and per
-   forward one ``cfmm_matmul`` (``int8``) or ``sparse_matvec``
-   (``sparse_cfmm``) per linear (``lm_linears``: 7 per dense layer, 4 + 3
-   per expert in an MoE layer, and the untied head; MLA's 5 in a
-   prefill and 3 in a decode step, whose absorbed path takes k_up and
-   v_up as dense weights: 5209 and 5155 per DeepSeek forward), the
+   decode step), the recurrent RWKV6-7B (published widths and depth) on
+   the dense configs' traffic and Jamba-v0.1 (published widths, one
+   period of 8 of its 32 layers: Mamba, attention, 16 experts top-2) on
+   OLMoE's, in ``dense`` and ``int8``, 4 slots.
+   Checks one ``flash_attention`` launch per attention layer and
+   request, and per forward one ``cfmm_matmul`` (``int8``) or
+   ``sparse_matvec`` (``sparse_cfmm``) per linear (``lm_linears``: 7 per
+   dense layer, 4 + 3 per expert in an MoE layer, and the untied head;
+   MLA's 5 in a prefill and 3 in a decode step, whose absorbed path
+   takes k_up and v_up as dense weights: 5209 and 5155 per DeepSeek
+   forward; 4 per Mamba mixer, 11 per RWKV layer: 353 per RWKV6
+   forward, 237 per Jamba period), the
    first prefills' logits against the CPU's plain forward of the same
    tree (SmolLM two, Gemma3 one; the others are too large for a CPU
    forward in the time), and the logits and greedy tokens against a card
@@ -128,7 +135,11 @@
    bucketed prefill against the unpadded one on the card, within
    ``LM_BUCKET_BOUND`` (an MoE stack at a capacity that keeps every
    pick: the capacity follows the padded token count), which a planted
-   length fault must fail; in an MoE stack the share of
+   length fault must fail; a recurrent stack instead prefills at exact
+   length (checked) and runs the state-carry witness: prefill(T + 1)
+   against prefill(T) and one decode step, within ``LM_LOGIT_BOUND``,
+   which the step on a zeroed recurrent state must fail (RWKV: the card
+   keeps the decay floor's subnormal); in an MoE stack the share of
    routing picks equal between the kernel run and the plain run, and
    the witness of a spread past the bounds: the kernel run on the plain
    run's picks replayed (``RouteRecorder``), held to the bounds;
@@ -147,6 +158,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import subprocess
@@ -348,7 +360,20 @@ CFMM_SHAPES = [("head", 2, 2048, 1000), ("head", 2, 1280, 1000),
     ("DeepSeek MLA q", 1024, 2048, 3072),
     ("DeepSeek MLA kv_down", 1024, 2048, 576),
     ("DeepSeek MLA k_up/v_up", 1024, 512, 2048),
-    ("DeepSeek MLA o", 1024, 2048, 2048)]
+    ("DeepSeek MLA o", 1024, 2048, 2048)] + [
+    # the SSM paths (exact-length prefills of 777 and 1000 tokens, 4 slots
+    # in decode): Mamba's x_proj (8192 -> dt_rank 256 + 2 x d_state 16)
+    # and dt_proj; RWKV6's low-rank token-shift mix (5 x 32), decay
+    # lora (64) in and out; Jamba's experts on their queues (cap 128 at
+    # 777 tokens, 8 at 37 and in decode); both configs' 65536-token heads
+    ("Mamba x_proj", 777, 8192, 288), ("Mamba dt_proj", 777, 256, 8192),
+    ("Mamba x_proj decode", 4, 8192, 288),
+    ("RWKV mix_lora_a", 1000, 4096, 160), ("RWKV w_lora_a", 1000, 4096, 64),
+    ("RWKV w_lora_b", 1000, 64, 4096), ("RWKV w_lora_b decode", 4, 64, 4096)
+] + [(f"Jamba expert {name} cap={M}", M, K, N)
+     for M in (128, 8)
+     for name, K, N in (("gate/up", 4096, 14336), ("down", 14336, 4096))] + [
+    ("SSM head prefill", 1, 4096, 65536), ("SSM head decode", 4, 4096, 65536)]
 
 
 def conv_case(spec, dev, gen):
@@ -787,6 +812,9 @@ LM_FLASH_SHAPES = [
     # v_dim = 128 (the fma kernel: 192 is no mma instance)
     ("DeepSeek-V2-Lite prefill T=1024", 1, 16, 1, 1024, 1024, 192, 128,
      True, None),
+    # Jamba's one attention layer per period: 32 heads over 8 KV heads,
+    # prefilled at exact length (777 tokens)
+    ("Jamba-v0.1 prefill T=777", 1, 8, 4, 777, 777, 128, 128, True, None),
 ]
 # kernel against plain version on the card (as tests/test_torch_kernels_
 # cuda.py): the sums run in other orders and the kernel's p is relative
@@ -1620,7 +1648,7 @@ OLMOE_PROMPTS = (37, 777)
 OLMOE_NEW = 2
 LM_MAX_SEQ = 1024 + 16 + 8
 # (arch, modes, prompts, new tokens, prefills held against the CPU's plain
-# forward)
+# forward[, layers served where the published depth does not fit the card])
 LM_PATHS = [
     ("smollm_360m", ("int8", "sparse_cfmm", "dense"), LM_PROMPTS, LM_NEW, 2),
     ("gemma3_1b", ("dense", "int8", "sparse_cfmm"), DENSE_LM_PROMPTS,
@@ -1635,6 +1663,12 @@ LM_PATHS = [
     # MLA on the MoE FFN: f32 weights are 58.5 GiB, the int8 tree 14.6 GiB
     ("deepseek_v2_lite_16b", ("dense", "int8"), OLMOE_PROMPTS, OLMOE_NEW,
      0),
+    # RWKV-6: f32 weights 28.2 GiB, at its published depth
+    ("rwkv6_7b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
+    # Jamba: 192.1 GiB of f32 weights at 32 layers; one period of 8 layers
+    # (every kind of block it has) is 49.5 GiB, with the int8 tree beside
+    # it about 62 GiB (10 layers would need about 77 GiB)
+    ("jamba_v01_52b", ("dense", "int8"), OLMOE_PROMPTS, OLMOE_NEW, 0, 8),
 ]
 # the kernel each compiled mode's linears launch
 LM_LINEAR = {"int8": "cfmm_matmul", "sparse_cfmm": "sparse_matvec"}
@@ -1647,12 +1681,19 @@ PUBLISHED = {
     "phi3_medium_14b": (40, 5120, 40, 10, 128, 17920, 100352),
     "olmoe_1b_7b": (16, 2048, 16, 16, 128, 1024, 50304),
     "deepseek_v2_lite_16b": (27, 2048, 16, 16, 192, 10944, 102400),
+    "rwkv6_7b": (32, 4096, 64, 64, 64, 14336, 65536),
+    "jamba_v01_52b": (32, 4096, 32, 8, 128, 14336, 65536),
 }
-# (n_experts, top_k, d_ff_expert, n_shared) of the MoE configs, and
-# (kv_lora, qk_nope, qk_rope, v_dim) of the MLA ones, as published
+# (n_experts, top_k, d_ff_expert, n_shared) of the MoE configs,
+# (kv_lora, qk_nope, qk_rope, v_dim) of the MLA ones, and the SSM
+# mixers' (d_inner, d_state, d_conv, dt_rank) for Mamba and (head_dim,
+# decay_lora) for RWKV-6, as published
 PUBLISHED_MOE = {"olmoe_1b_7b": (64, 8, 1024, 0),
-                 "deepseek_v2_lite_16b": (64, 6, 1408, 2)}
+                 "deepseek_v2_lite_16b": (64, 6, 1408, 2),
+                 "jamba_v01_52b": (16, 2, 14336, 0)}
 PUBLISHED_MLA = {"deepseek_v2_lite_16b": (512, 128, 64, 128)}
+PUBLISHED_SSM = {"jamba_v01_52b": ("mamba", 8192, 16, 4, 256),
+                 "rwkv6_7b": ("rwkv6", 64, 64)}
 # max |dlogit| allowed between two forwards of the same tokens: the card
 # against the CPU's plain versions, and the kernels against their plain
 # versions substituted on the card.  Both sides compute the same function
@@ -1697,19 +1738,21 @@ LOOSE_CAPACITY = 16.0
 
 
 def lm_linears(cfg, decode=False) -> int:
-    """The linears one forward runs: per layer the attention's (q, k, v,
-    o; MLA's q, kv_down, k_up, v_up and o in a prefill, and in a decode
-    step q, kv_down and o: the absorbed path takes k_up and v_up as
-    dense weights) and the FFN's gate, up and down, three per expert in
-    an MoE layer (every expert runs on its queue, empty rows too, as
-    JAX's vmap runs them) and three for the shared experts, and an
-    untied head."""
-    attn = (3 if decode else 5) if cfg.mla else 4
+    """The linears one forward runs: per layer the mixer's (attention: q,
+    k, v, o; MLA's q, kv_down, k_up, v_up and o in a prefill, and in a
+    decode step q, kv_down and o: the absorbed path takes k_up and v_up as
+    dense weights; Mamba: in_proj, x_proj, dt_proj, out_proj; RWKV-6:
+    mix_lora_a, r, k, v, g, w_lora_a, w_lora_b, o) and the FFN's (gate, up
+    and down, three per expert in an MoE layer — every expert runs on its
+    queue, empty rows too, as JAX's vmap runs them — and three for the
+    shared experts; RWKV's channel-mix wk, wr, wv), and an untied head."""
+    mixer = {"attn": (3 if decode else 5) if cfg.mla else 4,
+             "mamba": 4, "rwkv": 8}
     n = 0
     for sig in cfg.layer_sigs():
         experts = (cfg.moe.n_experts + (cfg.moe.n_shared > 0)
                    if sig["moe"] else 1)
-        n += attn + 3 * experts
+        n += mixer[sig["kind"]] + 3 * experts
     return n + (0 if cfg.tie_embeddings else 1)
 
 
@@ -1859,15 +1902,17 @@ def plain_versions(names, attention=None):
 def per_row_scales():
     """Every LM linear quantizes its input rows each under its own scale
     (``apply_linear(per_row=True)``), for one run."""
-    import functools
-    from repro_torch.models import attention, layers
+    from repro_torch.models import attention, layers, lm, ssm
+    mods = (attention, layers, lm, ssm)
     orig = attention.apply_linear
     row = functools.partial(orig, per_row=True)
-    attention.apply_linear = layers.apply_linear = row
+    for mod in mods:
+        mod.apply_linear = row
     try:
         yield
     finally:
-        attention.apply_linear = layers.apply_linear = orig
+        for mod in mods:
+            mod.apply_linear = orig
 
 
 def sdpa_attention(q, k, v, causal=True, window=None):
@@ -2046,7 +2091,130 @@ def bucketed_against_unpadded(tree, cfg, reqs, label):
     return dict(max_dlogit=out, planted_length_fault=planted)
 
 
-def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
+# the recurrent state leaves of a Mamba (conv, ssm) and an RWKV (the
+# time-mix shift and wkv, the channel-mix cm) layer's cache
+RECURRENT_LEAVES = ("conv", "ssm", "shift", "wkv", "cm")
+
+
+def _zero_recurrent(cache, key=None):
+    """The cache with every recurrent state leaf zeroed (a planted fault:
+    a decode step that lost the state its prefill carried)."""
+    if isinstance(cache, dict):
+        return {k: _zero_recurrent(v, k) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [_zero_recurrent(v) for v in cache]
+    return torch.zeros_like(cache) if key in RECURRENT_LEAVES else cache
+
+
+def decay_floor_check(label):
+    """RWKV's log-decay floors its decay at 1e-38, below f32's smallest
+    normal number: the card must keep the subnormal (no flush to zero),
+    as the CPU does, or a decay that underflows to 0 logs to -inf.  The
+    floor equal to the CPU's bits, its log finite and within 1e-6
+    relative (CUDA's logf and the CPU's round apart by an ulp)."""
+    zero = torch.zeros(1)
+    floor, card = torch.clamp_min(zero, 1e-38), torch.clamp_min(
+        zero.cuda(), 1e-38)
+    want, got = torch.log(floor), torch.log(card).cpu()
+    print(f"[lm] {label}: max(0, 1e-38) on the card {float(card):.6g} "
+          f"(the CPU's {float(floor):.6g}); its log {float(got):.6f}, "
+          f"on the CPU {float(want):.6f}", flush=True)
+    check(torch.equal(card.cpu(), floor) and float(floor) > 0
+          and bool(torch.isfinite(got).all())
+          and float((got - want).abs()) <= 1e-6 * float(want.abs()),
+          f"{label}: the card flushes the decay floor's subnormal")
+
+
+RWKV_CHUNK = 64              # ssm.rwkv6_forward's chunk
+
+
+def carry_prompts(cfg, reqs) -> list:
+    """The state-carry witness's prompts: the shortest, and the 777-token
+    one, or in an RWKV stack the longest whose last 64-token chunk holds
+    at least 34 tokens in both prefills (T mod 64 >= 33).  RWKV's chunk
+    factors its decays through the chunk's position 32, the last real
+    token when the chunk is shorter; so prefill(T) and prefill(T + 1)
+    then round the chunk's first rows differently, and 32 layers carry
+    that on (the 777-token reading is printed beside, unchecked)."""
+    if cfg.ssm is None or cfg.ssm.kind != "rwkv6":
+        return [reqs[0], next(r for r in reqs if len(r.prompt) == 777)]
+    return [reqs[0], max((r for r in reqs
+                          if (len(r.prompt) - 1) % RWKV_CHUNK >= 33),
+                         key=lambda r: len(r.prompt))]
+
+
+def state_carry_witness(tree, cfg, reqs, label, per_row=False):
+    """A recurrent stack's prefill carries its state into decode: for the
+    ``carry_prompts``, prefill(T + 1) against prefill(T) followed by one
+    decode step of token T + 1, on the card, within ``LM_LOGIT_BOUND``
+    (the chunked scan against the one-token step).  A planted fault, the
+    step on a zeroed recurrent state, must read above the bound.  An MoE
+    stack runs at ``LOOSE_CAPACITY``, where no pick is dropped in either
+    run (the capacity follows the token count).  In a compiled mode the
+    served run shares one activation scale among a prefill's T + 1 rows
+    where the step has its one row: that reading is printed, and the
+    check runs with per-row scales (``per_row_scales``), which quantize
+    the last row alike in both.  Returns max |dlogit| and the planted
+    fault's, by prompt (and the served scales' reading; in an RWKV stack
+    the unchecked 777-token reading)."""
+    from repro_torch import nn
+    from repro_torch.models import lm, moe
+    prompts = carry_prompts(cfg, reqs)
+    extra = [r for r in reqs if len(r.prompt) == 777 and r not in prompts]
+
+    def run(scales, chosen=prompts):
+        out, planted = {}, {}
+        for r in chosen:
+            T = len(r.prompt) - 1
+            toks = torch.tensor([r.prompt], dtype=torch.long, device="cuda")
+
+            def prefill(n):
+                cache = nn.unbox(lm.cache_init(cfg, 1, LM_MAX_SEQ,
+                                               device="cuda"))
+                return lm.forward_prefill(tree, {"tokens": toks[:, :n]},
+                                          cfg, cache)
+            with scales():
+                full = prefill(T + 1)[0][0, -1].float()
+                _, cache = prefill(T)
+                step = {"token": toks[:, T:T + 1]}
+                carried = lm.forward_decode(tree, step, cfg, cache)[0]
+                lost = lm.forward_decode(tree, step, cfg,
+                                         _zero_recurrent(cache))[0]
+            out[T + 1] = float((carried[0, -1].float() - full).abs().max())
+            planted[T + 1] = float((lost[0, -1].float() - full).abs().max())
+        return out, planted
+
+    served = moe.moe_forward
+    if cfg.moe is not None:
+        moe.moe_forward = functools.partial(served,
+                                            capacity_factor=LOOSE_CAPACITY)
+    checked = per_row_scales if per_row else contextlib.nullcontext
+    try:
+        shared = run(contextlib.nullcontext)[0] if per_row else None
+        out, planted = run(checked)
+        unchecked = run(checked, extra)[0] if extra else None
+    finally:
+        moe.moe_forward = served
+    print(f"[lm] {label}: state carry on the card"
+          + (f" (MoE capacity factor {LOOSE_CAPACITY})" if cfg.moe else "")
+          + f": prefill(T+1) vs prefill(T) + one decode step, max|dlogit| "
+          f"by T+1 {out}"
+          + (f" with per-row activation scales ({shared} with the served "
+             f"per-tensor ones)" if per_row else "")
+          + f"; planted zeroed state {planted}"
+          + (f"; unchecked, RWKV's chunk reference on a pad token: "
+             f"{unchecked}" if extra else ""), flush=True)
+    check(max(out.values()) <= LM_LOGIT_BOUND,
+          f"{label}: the decode step off the longer prefill by {out}")
+    check(min(planted.values()) > LM_LOGIT_BOUND,
+          f"{label}: the planted zeroed state passes the bound: {planted}")
+    return dict(max_dlogit=out, planted_zeroed_state=planted,
+                served_scales_max_dlogit=shared,
+                unchecked_pad_reference=unchecked)
+
+
+def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu,
+             n_layers=None):
     """Serve one LM config at full width on the card in each of ``modes``:
     seeded random weights initialised (and compiled) on the card; launch
     counts of one run; the first ``n_cpu`` prefills' logits against the
@@ -2056,9 +2224,11 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
     against the CPU's, and the run with only the linears' plain version
     (the float64 product), equal to the bit, with that run's profile in
     ``int8``; the ``LM_DECODE_BOUNDS`` paths' decode witnesses; in
-    ``dense``, the bucketed prefill against the unpadded one; prefill and
-    decode tokens/s; one profiled run; the peak device memory.  One model
-    tree and one engine live at a time."""
+    ``dense``, the bucketed prefill against the unpadded one (a recurrent
+    stack: its exact-length prefills, and in every mode the state-carry
+    witness); prefill and decode tokens/s; one profiled run; the peak
+    device memory.  ``n_layers`` serves the published widths at that
+    depth.  One model tree and one engine live at a time."""
     from repro_torch import nn
     from repro_torch.core.compiled_linear import ensure_compiled
     from repro_torch.launch.serve import build_cfg
@@ -2076,6 +2246,19 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         m = cfg.mla
         check((m.kv_lora, m.qk_nope, m.qk_rope, m.v_dim)
               == PUBLISHED_MLA[arch], f"{arch}: not the published MLA")
+    if arch in PUBLISHED_SSM:
+        m = cfg.ssm
+        got = ((m.kind, m.d_inner, m.d_state, m.d_conv, m.dt_rank)
+               if m.kind == "mamba" else (m.kind, m.head_dim, m.decay_lora))
+        check(got == PUBLISHED_SSM[arch], f"{arch}: not the published SSM")
+    if n_layers is not None:
+        print(f"[lm] {arch}: published depth {cfg.n_layers} layers, served "
+              f"at {n_layers} (the published widths)", flush=True)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    recurrent = any(sig["kind"] != "attn" for sig in cfg.layer_sigs())
+    n_attn = sum(sig["kind"] == "attn" for sig in cfg.layer_sigs())
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        decay_floor_check(arch)
     requests = lambda: lm_requests(cfg, prompts, new)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2129,7 +2312,7 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         counts = {name: kern.launches for name, kern in kernels.items()}
         n_fwd = len(rec.calls)
         n_dec = sum(c[0] == "decode" for c in rec.calls)
-        want = {"flash_attention": cfg.n_layers * len(prompts)}
+        want = {"flash_attention": n_attn * len(prompts)}
         if linear:
             want[linear] = (lm_linears(cfg) * (n_fwd - n_dec)
                             + lm_linears(cfg, decode=True) * n_dec)
@@ -2147,12 +2330,14 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         pre = [c for c in rec.calls if c[0] == "prefill"]
         dec = [c for c in rec.calls if c[0] == "decode"]
         pre_tok = sum(prompts)
-        pre_bucket = sum(_bucket_len(L, LM_MAX_SEQ) for L in prompts)
+        pre_bucket = (pre_tok if recurrent else
+                      sum(_bucket_len(L, LM_MAX_SEQ) for L in prompts))
         dec_tok = sum(len(c[1]) for c in dec)
         pre_s, dec_s = sum(c[3] for c in pre), sum(c[3] for c in dec)
         print(f"[lm] {label}: compile on the card {t_compile:.1f}s; "
               f"{len(reqs)} requests x {new} tokens in {wall:.2f}s on "
-              f"{card}; prefill {pre_tok} tokens ({pre_bucket} bucketed) in "
+              f"{card}; prefill {pre_tok} tokens ({pre_bucket} "
+              f"{'at exact length' if recurrent else 'bucketed'}) in "
               f"{pre_s * 1e3:.1f} ms = {pre_tok / pre_s:.0f} tok/s; decode "
               f"{dec_tok} tokens in {len(dec)} steps, {dec_s * 1e3:.1f} ms "
               f"= {dec_tok / dec_s:.1f} tok/s; launches {counts}",
@@ -2242,8 +2427,16 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
         check(held["streams_equal"] or held["margins"], f"{label}: streams "
               "differ though no compared step parted")
 
-        bucketed = (bucketed_against_unpadded(tree, cfg, reqs, label)
-                    if mode == "dense" else None)
+        bucketed = carry = None
+        if recurrent:
+            check(not eng._bucket_prefill and all(
+                c[4]["tokens"].shape[1] == L and "length" not in c[4]
+                for c, L in zip(pre, prompts)),
+                f"{label}: a recurrent stack must prefill at exact length")
+            carry = state_carry_witness(tree, cfg, reqs, label,
+                                        per_row=linear is not None)
+        elif mode == "dense":
+            bucketed = bucketed_against_unpadded(tree, cfg, reqs, label)
         prof = profile_lm(make, requests, label)
         plain_linear = witnesses = None
         if linear:
@@ -2277,7 +2470,8 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu):
                        tokens_equal=same, prefill_max_dlogit=pre_d,
                        decode_max_dlogit=dec_d, decode_bound=dec_bound,
                        logit_std=std, margins=margins),
-            routing=routing, bucketed_vs_unpadded=bucketed, profile=prof,
+            routing=routing, bucketed_vs_unpadded=bucketed,
+            state_carry=carry, profile=prof,
             plain_linear=plain_linear, decode_witnesses=witnesses,
             peak_bytes=peak, init_peak_bytes=init_peak,
             compile_peak_bytes=compile_peak if linear else None)
@@ -2294,11 +2488,16 @@ def check_card_compile(params, tree, cfg, mode, label):
     from repro_torch import nn
     from repro_torch.core.compiled_linear import _compile_leaf
     block, ctree = params["template"][0], tree["template"][0]
-    attn = "kv_down" if cfg.mla else "k"
+    attn = ("kv_down" if cfg.mla else
+            "in_proj" if "in_proj" in block["mixer"] else "k")
     leaves = [(attn, block["mixer"][attn], ctree["mixer"][attn], ...)]
     if cfg.moe is not None:
-        leaves.append(("expert down", block["ffn"]["experts"]["down"],
-                       ctree["ffn"]["experts"]["down"], (0, slice(0, 2))))
+        j = next(j for j, b in enumerate(params["template"])
+                 if "experts" in b["ffn"])
+        leaves.append(("expert down",
+                       params["template"][j]["ffn"]["experts"]["down"],
+                       tree["template"][j]["ffn"]["experts"]["down"],
+                       (0, slice(0, 2))))
     for name, leaf, card_leaf, part in leaves:
         value = leaf.value[part].cpu()
         cpu_leaf = _compile_leaf(nn.Param(value, leaf.axes[-value.ndim:],

@@ -141,10 +141,11 @@ class ArchConfig:
         return dataclasses.replace(self, **changes)
 
 
-# the LM configs the port has; the JAX package's other four wait for the
-# modules they need (SSM, M-RoPE, encoder-decoder: ROADMAP A8)
+# the LM configs the port has; the JAX package's other two wait for the
+# modules they need (M-RoPE, encoder-decoder: ROADMAP A8)
 ARCH_IDS = ("smollm_360m", "gemma3_1b", "stablelm_3b", "phi3_medium_14b",
-            "olmoe_1b_7b", "deepseek_v2_lite_16b")
+            "jamba_v01_52b", "deepseek_v2_lite_16b", "olmoe_1b_7b",
+            "rwkv6_7b")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,5 +1,5 @@
-"""LM assembly from an ``ArchConfig``: attention blocks with a dense or
-MoE FFN (ports ``repro/models/lm.py``).
+"""LM assembly from an ``ArchConfig``: attention, Mamba and RWKV blocks
+with a dense, MoE or RWKV channel-mix FFN (ports ``repro/models/lm.py``).
 
 Layers group into (prefix, periodic template x n_groups, suffix) exactly
 as in the JAX package, and the template's parameters and caches carry a
@@ -10,26 +10,33 @@ over that axis, on views of the stacked tensors.
 Ported: GQA stacks (SmolLM, Gemma3, StableLM, Phi-3) and MLA stacks
 (DeepSeek-V2-Lite, with its dense first layer in the prefix) with dense
 or MoE FFNs (OLMoE, models/moe.py; ``moe_pattern`` mixes both in one
-template), sliding-window layers, the full forward (``forward_train``
-without QAT or remat, with the MoE aux summed over the layers), prefill
-(with the serving engine's bucketed ``length`` path) and decode, on
-compiled or dense (float) weight leaves.  Mamba, RWKV, the
-encoder-decoder and QAT raise ``NotImplementedError`` (ROADMAP A8).
+template), sliding-window layers, the recurrent mixers of
+models/ssm.py (RWKV-6 with its channel-mix FFN; Mamba, which Jamba
+interleaves with attention and the MoE), the full forward
+(``forward_train`` without QAT or remat, with the MoE aux summed over the
+layers), prefill (with the serving engine's bucketed ``length`` path for
+attention-only stacks) and decode, on compiled or dense (float) weight
+leaves.  The encoder-decoder, M-RoPE and QAT raise
+``NotImplementedError`` (ROADMAP A8).
 
 Cache counters (``length``, ``pos``) live on the host; ``k``/``v`` (MLA:
 ``c_kv``/``k_rope``) live with the parameters and are written in place
-(models/attention.py).
+(models/attention.py); a recurrent layer's state (Mamba ``conv``/``ssm``,
+RWKV ``tm``/``cm``) is replaced by the new one at every call.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.compiled_linear import apply_linear
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed, embed_init, ffn, ffn_init,
                                        layernorm, layernorm_init, lm_head,
                                        lm_head_init, rmsnorm, rmsnorm_init)
@@ -71,7 +78,7 @@ def group_layers(sigs):
 
 
 # ---------------------------------------------------------------------------
-# Single block (attention + dense or MoE FFN)
+# Single block (mixer + FFN/MoE)
 # ---------------------------------------------------------------------------
 
 def _norm_init(gen, cfg, d=None):
@@ -85,57 +92,116 @@ def _norm(p, x, cfg):
             else layernorm(p, x, cfg.norm_eps))
 
 
-def _check_ported(cfg: ArchConfig, sig):
+def _check_ported(cfg: ArchConfig):
     if cfg.encoder_decoder:
         raise NotImplementedError(f"the encoder-decoder {_A8}")
-    if sig["kind"] != "attn":
-        raise NotImplementedError(f"{sig['kind']} mixers {_A8}")
+    if cfg.pos == "mrope":
+        raise NotImplementedError(f"M-RoPE {_A8}")
 
 
 def block_init(gen, cfg: ArchConfig, sig, cross=False):
-    _check_ported(cfg, sig)
+    _check_ported(cfg)
     if cross:
         raise NotImplementedError(f"cross-attention blocks {_A8}")
-    mixer = attn.mla_init if cfg.mla else attn.gqa_init
-    p = {"ln1": _norm_init(gen, cfg), "mixer": mixer(gen, cfg),
-         "ln2": _norm_init(gen, cfg),
-         "ffn": (moe_mod.moe_init(gen, cfg) if sig["moe"] else
-                 ffn_init(gen, cfg.d_model, cfg.d_ff,
-                          gated=cfg.act in ("silu", "gelu")))}
+    p = {"ln1": _norm_init(gen, cfg)}
+    if sig["kind"] == "attn":
+        p["mixer"] = (attn.mla_init if cfg.mla else attn.gqa_init)(gen, cfg)
+    elif sig["kind"] == "mamba":
+        p["mixer"] = ssm_mod.mamba_init(gen, cfg)
+    elif sig["kind"] == "rwkv":
+        p["mixer"] = ssm_mod.rwkv6_init(gen, cfg)
+    else:
+        raise ValueError(sig)
+    p["ln2"] = _norm_init(gen, cfg)
+    if sig["moe"]:
+        p["ffn"] = moe_mod.moe_init(gen, cfg)
+    elif sig["kind"] == "rwkv":
+        p["ffn"] = rwkv_cm_init(gen, cfg)
+    else:
+        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff,
+                            gated=cfg.act in ("silu", "gelu"))
     if cfg.post_block_norm:
         p["post_ln1"] = _norm_init(gen, cfg)
         p["post_ln2"] = _norm_init(gen, cfg)
     return p
 
 
+def rwkv_cm_init(gen, cfg):
+    d, dff = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": nn.param(gen, (d,), ("embed",), scale=0.5),
+        "mu_r": nn.param(gen, (d,), ("embed",), scale=0.5),
+        "wk": nn.linear_param(gen, d, dff, ("embed", "ffn_in")),
+        "wr": nn.linear_param(gen, d, d, ("embed", "embed_out")),
+        "wv": nn.linear_param(gen, dff, d, ("ffn_in", "embed")),
+    }
+
+
+def rwkv_cm(p, x, state=None, qat=False):
+    """RWKV channel-mix with token shift; returns (y, new_shift).  The
+    shift arithmetic stays in x's dtype (bf16 in the LM), as in JAX."""
+    if state is not None:
+        prev = torch.cat([state.to(x.dtype), x[:, :-1]], dim=1)
+    else:
+        prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    new_shift = x[:, -1:]
+    xk = x + (prev - x) * p["mu_k"].to(x.dtype)
+    xr = x + (prev - x) * p["mu_r"].to(x.dtype)
+    k = torch.square(torch.relu(apply_linear(p["wk"], xk, qat)))
+    r = ssm_mod.sigmoid(apply_linear(p["wr"], xr, qat))
+    return r * apply_linear(p["wv"], k, qat), new_shift
+
+
 def block_cache_init(cfg, sig, B, S_max, cross=False, kv_dtype=None,
                      device="cpu"):
-    _check_ported(cfg, sig)
-    spec = attn.mla_cache_spec if cfg.mla else attn.gqa_cache_spec
-    return spec(cfg, B, S_max, kv_dtype or torch.bfloat16, device)
+    _check_ported(cfg)
+    if sig["kind"] == "attn":
+        spec = attn.mla_cache_spec if cfg.mla else attn.gqa_cache_spec
+        return spec(cfg, B, S_max, kv_dtype or torch.bfloat16, device)
+    if sig["kind"] == "mamba":
+        return ssm_mod.mamba_state_spec(cfg, B, device)
+    return {"tm": ssm_mod.rwkv6_state_spec(cfg, B, device),
+            "cm": nn.Param(torch.zeros((B, 1, cfg.d_model),
+                                       dtype=torch.bfloat16, device=device),
+                           ("batch", None, "embed_s"))}
 
 
 def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
                 decode=False, causal=True):
     """Returns (x, new_cache, aux).  ``cache`` None: no state; given with
-    decode=False: prefill (written from position 0); with decode=True:
-    one decode step."""
+    decode=False: prefill (written from position 0; a recurrent state
+    starts from zero); with decode=True: one decode step."""
     aux = {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
     h = _norm(p["ln1"], x, cfg)
-    if cfg.mla:
-        out, new_cache = attn.mla_forward(p["mixer"], h, cfg, positions,
-                                          cache=cache)
-    else:
-        window = cfg.window if sig["attn_type"] == "local" else None
-        out, new_cache = attn.gqa_forward(p["mixer"], h, cfg, positions,
-                                          window=window, causal=causal,
-                                          cache=cache, cross_kv=cross_kv)
+    new_cache = None
+    if sig["kind"] == "attn":
+        if cfg.mla:
+            out, new_cache = attn.mla_forward(p["mixer"], h, cfg, positions,
+                                              cache=cache)
+        else:
+            window = cfg.window if sig["attn_type"] == "local" else None
+            out, new_cache = attn.gqa_forward(p["mixer"], h, cfg, positions,
+                                              window=window, causal=causal,
+                                              cache=cache, cross_kv=cross_kv)
+    elif sig["kind"] == "mamba":
+        out, st = ssm_mod.mamba_forward(
+            p["mixer"], h, cfg, state=cache if decode else None)
+        new_cache = st if cache is not None else None
+    else:  # rwkv
+        tm_state = cache["tm"] if (cache is not None and decode) else None
+        out, tm_new = ssm_mod.rwkv6_forward(p["mixer"], h, cfg,
+                                            state=tm_state)
     if cfg.post_block_norm:
         out = _norm(p["post_ln1"], out, cfg)
     x = x + out
     h2 = _norm(p["ln2"], x, cfg)
     if sig["moe"]:
         y, aux = moe_mod.moe_forward(p["ffn"], h2, cfg)
+    elif sig["kind"] == "rwkv":
+        cm_state = cache["cm"] if (cache is not None and decode) else None
+        y, cm_new = rwkv_cm(p["ffn"], h2, state=cm_state)
+        if cache is not None:
+            new_cache = {"tm": tm_new, "cm": cm_new}
     else:
         y = ffn(p["ffn"], h2, act=cfg.act)
     if cfg.post_block_norm:
@@ -191,9 +257,11 @@ def cache_init(cfg: ArchConfig, B: int, S_max: int, S_enc: int | None = None,
 
 
 def _stack_caches(caches: list):
-    return {k: nn.Param(torch.stack([c[k].value for c in caches]),
-                        ("layers",) + caches[0][k].axes, caches[0][k].kind)
-            for k in caches[0]}
+    first = caches[0]
+    if isinstance(first, dict):                # RWKV nests {tm: {...}, cm}
+        return {k: _stack_caches([c[k] for c in caches]) for k in first}
+    return nn.Param(torch.stack([c.value for c in caches]),
+                    ("layers",) + first.axes, first.kind)
 
 
 # ---------------------------------------------------------------------------
@@ -216,18 +284,18 @@ def _layer(tree, g: int):
                        else a, tree)
 
 
-def _restack(stacked: dict, per_layer: list) -> dict:
+def _restack(stacked, per_layer: list):
     """A stacked cache from its layers' new caches: leaves written in
     place (views of the stacked tensor) keep the stacked tensor; the
-    rest (the new ``length`` counters) stack anew."""
-    out = {}
-    for key, full in stacked.items():
-        vals = [c[key] for c in per_layer]
-        in_place = all(v.data_ptr() == full[g].data_ptr()
-                       and v.shape == full[g].shape
-                       for g, v in enumerate(vals))
-        out[key] = full if in_place else torch.stack(vals)
-    return out
+    rest (the new ``length`` counters, the recurrent states) stack
+    anew."""
+    if isinstance(stacked, dict):
+        return {key: _restack(full, [c[key] for c in per_layer])
+                for key, full in stacked.items()}
+    in_place = all(v.data_ptr() == stacked[g].data_ptr()
+                   and v.shape == stacked[g].shape
+                   for g, v in enumerate(per_layer))
+    return stacked if in_place else torch.stack(per_layer)
 
 
 def _run_stack(params, x, cfg, sigs_info, positions, cache=None,

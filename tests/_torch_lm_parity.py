@@ -1,8 +1,10 @@
 """Shared harness of the LM parity files (``test_torch_lm_*.py``): JAX
-``lm.init`` -> ``params_from_numpy`` -> each package compiles its own
+``lm.init`` -> ``params_from_numpy`` (or, with ``PORT_INIT``, the port's
+``lm.init`` -> ``jax_tree_from_port``) -> each package compiles its own
 tree (or keeps it dense) -> the port's ``ServingEngine(device="cpu")``
 against the JAX package's ``ServingEngine``, whose jitted forwards are
-the oracle, under ``REPRO_PALLAS=jnp``.
+the oracle, under ``REPRO_PALLAS=jnp``.  Every compared logit must be
+finite on both sides.
 
 ``LMParity`` holds the tests every dense LM config runs at
 ``reduced()``; a file subclasses it as ``Test<Name>`` and sets ``ARCH``
@@ -31,6 +33,7 @@ from repro.core import compiled_linear as jcl
 from repro.models import lm as jlm
 from repro.serving import engine as jeng
 from repro_torch import nn as tnn
+from repro_torch.configs import base as tbase
 from repro_torch.configs.base import get_config as tget_config
 from repro_torch.core import compiled_linear as tcl
 from repro_torch.models import lm as tlm
@@ -75,6 +78,26 @@ def flat_port(tree, path=""):
     if isinstance(tree, (tcl.KDim, tcl.ConvGeom)):
         return {}                 # JAX's markers are childless nodes
     return {path: tree}
+
+
+def port_config(cfg):
+    """The port's ``ArchConfig`` equal to JAX's ``cfg``, field for
+    field."""
+    def conv(v):
+        if dataclasses.is_dataclass(v):
+            return getattr(tbase, type(v).__name__)(**{
+                f.name: conv(getattr(v, f.name))
+                for f in dataclasses.fields(v)})
+        return v
+    return conv(cfg)
+
+
+def jax_tree_from_port(tree):
+    """The port's boxed tree as JAX ``Param`` boxes holding the same
+    bits (the inverse of ``params_from_numpy``)."""
+    return tnn.tree_map(
+        lambda p: jnn.Param(jnp.asarray(p.value.numpy()), p.axes, p.kind),
+        tree, is_leaf=lambda x: isinstance(x, tnn.Param))
 
 
 def to_np(x):
@@ -157,6 +180,8 @@ def compare_calls(run):
         if kind == "decode" and parted:
             continue
         for r in rows:
+            # a NaN would drop out of the max below
+            assert np.isfinite(jl[r]).all() and np.isfinite(tl[r]).all()
             worst = max(worst, float(np.abs(jl[r] - tl[r]).max()))
             jt, tt = int(np.argmax(jl[r])), int(np.argmax(tl[r]))
             if jt != tt:
@@ -228,10 +253,19 @@ class LMParity:
         return tuple(dataclasses.replace(get(cls.ARCH).reduced(), **over)
                      for get in (jget_config, tget_config))
 
+    # the port initialises the weights and JAX takes them through numpy
+    # (``jax_tree_from_port``), where JAX's jitted init of a deep reduced
+    # stack would cost seconds of compile per file
+    PORT_INIT = False
+
     @classmethod
     def init_trees(cls, jcfg):
         """(JAX boxed tree, the port's boxed tree): the same f32
         weights on both sides."""
+        if cls.PORT_INIT:
+            tt = tlm.init(torch.Generator().manual_seed(0),
+                          port_config(jcfg))
+            return jax_tree_from_port(tt), tt
         jt = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
         return jt, tnn.params_from_numpy(jt)
 
@@ -292,7 +326,9 @@ class LMParity:
         assert n_stacked >= 7 * 2          # seven linears, two parts each
 
     def test_prefill_and_decode_logits_match_jitted_jax(self, served, mode):
-        worst, _, _ = compare_calls(served(mode))
+        worst, n_tok, _ = compare_calls(served(mode))
+        print(f"{self.ARCH}/{mode}: max|dlogit| {worst:.4g} over {n_tok} "
+              f"compared tokens")
         assert worst <= self.BOUND[mode], (self.ARCH, mode, worst)
 
     def test_engine_greedy_tokens_match_jitted_jax(self, served, mode):
@@ -395,7 +431,11 @@ class MoEParity(LMParity):
     """``LMParity`` for an MoE config: the engine runs replay JAX's
     routing into the port (``RoutingTape``), so the logits compare the
     arithmetic; every pick the port would have made otherwise is held to
-    a near-tie; ``forward_train``'s aux against JAX's."""
+    a near-tie; ``forward_train``'s aux against JAX's.  A subclass may
+    set its own ``FLIP_MARGINS`` (mode -> margin; ``forward_train`` runs
+    the dense tree)."""
+
+    FLIP_MARGINS = {mode: FLIP_MARGIN for mode in MODES}
 
     @classmethod
     def n_moe(cls) -> int:
@@ -427,8 +467,8 @@ class MoEParity(LMParity):
     def test_routing_flips_are_near_ties(self, served, mode):
         """Where the port, on JAX's routing so far, would pick otherwise
         than JAX, JAX's own margin at that token is under
-        ``FLIP_MARGIN``: a near-tie that a bf16 rounding upstream turns.
-        The flips are counted and named; none is hidden."""
+        ``FLIP_MARGINS[mode]``: a near-tie that a bf16 rounding upstream
+        turns.  The flips are counted and named; none is hidden."""
         run = served(mode)
         tape = run["tape"]
         flips = tape.flips(run["calls"], self.PROMPTS, run["forced"])
@@ -436,7 +476,7 @@ class MoEParity(LMParity):
               f"{len(tape.jax)} MoE layer calls; JAX margins "
               f"{sorted(round(m, 6) for _, _, m in flips)}")
         assert len(tape.jax) == len(run["calls"]) * self.n_moe()
-        assert all(m <= FLIP_MARGIN for _, _, m in flips), flips
+        assert all(m <= self.FLIP_MARGINS[mode] for _, _, m in flips), flips
 
     def test_forward_train_aux_matches_jax(self, served_trees):
         """The aux summed over the MoE layers, on JAX's routing
@@ -459,7 +499,8 @@ class MoEParity(LMParity):
             np.testing.assert_allclose(float(taux[k]), float(jaux[k]),
                                        rtol=AUX_RTOL[k], err_msg=k)
         assert float(taux["lb_loss"]) > 0 and float(taux["dropped_frac"]) > 0
-        assert all(m <= FLIP_MARGIN for _, _, m in tape.flips())
+        assert all(m <= self.FLIP_MARGINS["dense"]
+                   for _, _, m in tape.flips())
         d = float(np.abs(np.asarray(jl.astype(jnp.float32))
                          - tl.float().numpy()).max())
         assert d <= self.BOUND["dense"], d

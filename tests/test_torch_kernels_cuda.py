@@ -717,14 +717,27 @@ def test_cfmm_matmul_matches_plain(dev, M, K, N, with_scale):
                                    (1024, 2560, 960),
                                    # DeepSeek-V2-Lite: expert queues, MLA
                                    (120, 2048, 1408), (8, 1408, 2048),
-                                   (1024, 2048, 576), (1024, 512, 2048)])
+                                   (1024, 2048, 576), (1024, 512, 2048),
+                                   # Mamba x_proj, dt_proj (Jamba)
+                                   (777, 8192, 288), (777, 256, 8192),
+                                   (4, 8192, 288),
+                                   # RWKV6 mix and decay loras
+                                   (1000, 4096, 160), (1000, 4096, 64),
+                                   (1000, 64, 4096), (4, 64, 4096),
+                                   # Jamba experts, the 65536-token heads
+                                   (128, 4096, 14336), (128, 14336, 4096),
+                                   (8, 4096, 14336), (1, 4096, 65536),
+                                   (4, 4096, 65536)])
 @pytest.mark.parametrize("with_scale", [False, True])
 def test_cfmm_matmul_matches_plain_at_lm_shapes(dev, M, K, N, with_scale):
     """SmolLM-360M's linears in int8: decode slots (M = 4) and prefill
     buckets; DeepSeek-V2-Lite's routed experts on their queues (cap 120
     at 1024 tokens, 8 in decode) and MLA's kv_down and k_up / v_up at
-    1024 tokens; the int32 product equal, the scaled output one
-    rounding."""
+    1024 tokens; the SSM paths' new shapes: Mamba's x_proj and dt_proj
+    at 777 tokens and in decode, RWKV6's low-rank mix (N = 160) and
+    decay (N = 64, K = 64) projections at 1000 tokens, Jamba's experts
+    at cap 128 and 8, and the 4096 x 65536 heads; the int32 product
+    equal, the scaled output one rounding."""
     g = torch.Generator().manual_seed(M + K + N)
     leaf = _compile_leaf_2d(torch.randn((K, N), generator=g), "int8", 0.8)
     x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
@@ -1152,6 +1165,7 @@ def test_block_sparse_graph_replay_equals_eager(dev, dtype):
     (1, 4, 256, 512, "fma"),         # Gemma3-1B local layers
     (1, 4, 256, None, "fma"),        # Gemma3-1B global layers
     (10, 4, 128, None, "mma"),       # Phi-3-medium-14B
+    (8, 4, 128, None, "mma"),        # Jamba-v0.1's attention layers
 ])
 @pytest.mark.parametrize("T", [1024, 1000])
 def test_flash_attention_matches_plain_at_dense_lm_shapes(

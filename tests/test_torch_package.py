@@ -188,7 +188,7 @@ def test_lm_config_and_unported_parts_raise():
                                                    2560, 49152)
     assert cfg.tie_embeddings and cfg.reduced().n_kv_heads == 1
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        serve.build_cfg("rwkv6_7b", "tiny")
+        serve.build_cfg("qwen2_vl_7b", "tiny")
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         lm.forward_train({}, {}, cfg, qat=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
