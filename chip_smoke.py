@@ -4,8 +4,8 @@
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA host
 
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   seven CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all started together);
+   eight CUDA kernel sources from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the served paths give it (N = 2 images, per-row scales): int32
    accumulators equal, ``y`` within 1 ulp, requantized int8 codes off by
@@ -24,7 +24,13 @@
    Dv != D, and in bf16 at the prefill shapes of StableLM-3B (D = 80),
    Gemma3-1B (D = 256, window 512 and none), Phi-3-medium and
    OLMoE-1B-7B (D = 128) and DeepSeek-V2-Lite's MLA (D = 192, Dv = 128)
-   at T = 1024, within ``FLASH_TOL``; ``cfmm_matmul`` also at the SSM
+   at T = 1024, within ``FLASH_TOL``; the flash-attention backward
+   (``flash_attention_bwd``, the training path's gradient) in bf16 and f32
+   at ``FLASH_BWD_SHAPES`` (SmolLM-360M's and Gemma3-1B's training shapes,
+   seq 512 x batch 8, and the served attention shapes above) from the
+   forward kernel's output and log-sum-exp, within ``FLASH_BWD_TOL`` of
+   its plain version, timed beside its bound and SDPA's backward (its
+   backend named); ``cfmm_matmul`` also at the SSM
    paths' linears (Mamba's x_proj and dt_proj, RWKV's low-rank mix and
    decay projections, Jamba's experts, both 65536-token heads); prints the
    variant each shape runs (flash: the tensor-core ``mma`` or the
@@ -104,10 +110,10 @@
    and ``sparse_cfmm``, StableLM-3B and Phi-3-medium-14B in ``dense`` and
    ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), the MoE
    OLMoE-1B-7B in ``dense``, ``int8`` and ``sparse_cfmm`` and the MLA +
-   MoE DeepSeek-V2-Lite-16B (published widths and depth; its dense first
-   layer, 64 routed experts top-6 beside 2 shared) in ``dense`` and
-   ``int8`` (2 requests of 37 and 777 tokens, 2 new tokens each: one
-   decode step), the recurrent RWKV6-7B (published widths and depth) on
+   MoE DeepSeek-V2-Lite-16B (published widths; its dense first layer,
+   64 routed experts top-6 beside 2 shared) in ``dense`` at its published
+   depth of 27 layers and in ``int8`` at 14 (2 requests of 37 and 777
+   tokens, 2 new tokens each: one decode step), the recurrent RWKV6-7B (published widths and depth) on
    the dense configs' traffic and Jamba-v0.1 (published widths, one
    period of 8 of its 32 layers: Mamba, attention, 16 experts top-2) on
    OLMoE's, in ``dense`` and ``int8``, 4 slots.
@@ -117,7 +123,7 @@
    dense layer, 4 + 3 per expert in an MoE layer, and the untied head;
    MLA's 5 in a prefill and 3 in a decode step, whose absorbed path
    takes k_up and v_up as dense weights: 5209 and 5155 per DeepSeek
-   forward; 4 per Mamba mixer, 11 per RWKV layer: 353 per RWKV6
+   forward at 27 layers, 2609 and 2581 at 14; 4 per Mamba mixer, 11 per RWKV layer: 353 per RWKV6
    forward, 237 per Jamba period), the
    first prefills' logits against the CPU's plain forward of the same
    tree (SmolLM two, Gemma3 one; the others are too large for a CPU
@@ -146,7 +152,20 @@
    reports prefill and decode tokens/s, one profiled run's idle share
    (device time summed from the profiler's raw events), the ``int8``
    compile's peak and the peak device memory of each path;
-5. runs the six example ports (``examples/torch_*.py``) from ``main``
+4b. trains through ``repro_torch.launch.train.main`` at full width, seq
+   512, batch 8, Markov data (``train_phase``): SmolLM-360M 12 plain steps
+   (finite loss that falls), the same run crashed at step 8 (exit 42, a
+   checkpoint at 8) and resumed, each step's loss equal to the
+   uninterrupted run's to the bit (``torch.use_deterministic_algorithms``
+   on), 4 QAT steps resumed from that checkpoint, one step's gradients
+   against the plain attention's (per leaf relative L2 within
+   ``TRAIN_GRAD_BOUND``, with an SDPA witness and a planted lost KV tile
+   that must fail it), and Gemma3-1B 4 plain steps (D = 256, window 512);
+   each path prints its median step, train tok/s, peak memory and flash
+   launches per step (checked: two forwards per template layer under the
+   remat, one backward per attention layer), and a profiled step its
+   device time by phase and idle share;
+5. runs the seven example ports (``examples/torch_*.py``) from ``main``
    on the card at their default flags: each one's own checks and "OK"
    line, and the launch counters of the kernels on its path;
 6. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
@@ -164,6 +183,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -886,6 +906,140 @@ def check_flash(spec, dtype, dev, gen):
     return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms,
                 max_abs_err=float(err.max()), variant=variant)
+
+
+# flash attention backward (the training path's gradient): the served
+# attention shapes and the two training shapes, (label, B, KVH, G, Tq, Tk,
+# D, Dv, causal, window)
+FLASH_BWD_SHAPES = [
+    ("SmolLM-360M train T=512", 8, 5, 3, 512, 512, 64, 64, True, None),
+    ("SmolLM-360M T=1024", 1, 5, 3, 1024, 1024, 64, 64, True, None),
+    ("Tq=7 vs Tk=1000", 1, 5, 3, 7, 1000, 64, 64, True, None),
+    ("non-causal Tk=1500", 1, 12, 1, 1500, 1500, 64, 64, False, None),
+    ("StableLM-3B T=1024", 1, 32, 1, 1024, 1024, 80, 80, True, None),
+    ("Phi-3-medium T=1024", 1, 10, 4, 1024, 1024, 128, 128, True, None),
+    ("Gemma3-1B train T=512 w512", 8, 1, 4, 512, 512, 256, 256, True, 512),
+    ("Gemma3-1B T=1024 w512", 1, 1, 4, 1024, 1024, 256, 256, True, 512),
+    ("DeepSeek-V2-Lite MLA T=1024", 1, 16, 1, 1024, 1024, 192, 128, True,
+     None),
+]
+# backward kernel against its plain version on the card (as tests/test_
+# torch_kernels_cuda.py): both sum in f32 in other orders and round once to
+# the inputs' type.  f32: 1e-4 absolute plus 1e-5 relative; bf16: 1e-2
+# absolute plus one output ulp (<= 2**-7 of it).
+FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-5),
+                 torch.bfloat16: (1e-2, 2.0 ** -7)}
+
+
+def event_ms(fn, reps=10) -> float:
+    """Median device time of one ``fn()`` call between CUDA events (no
+    CUDA graph: the SDPA yardstick runs autograd, which a graph capture
+    does not take), after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def flash_bwd_work(q, k, v, causal, window):
+    """(flops, bytes) the backward needs on these inputs: per visible
+    (query, key) pair the recomputed score (2 D), dp (2 Dv), dv (2 Dv), dq
+    and dk (2 D each), 2.5 times the forward's 2 (D + Dv) at D = Dv; q, k,
+    v, o, dout and lse read once, dq, dk and dv written once."""
+    from repro_torch.kernels.flash_attention import position_mask
+    B, KVH, G, Tq, D = q.shape
+    Tk, Dv = k.shape[2], v.shape[-1]
+    pairs = int(position_mask(Tq, Tk, causal, window, "cpu").sum())
+    flops = 2.0 * B * KVH * G * pairs * (3 * D + 2 * Dv)
+    rows = B * KVH * G * Tq
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * rows * Dv) \
+        * q.element_size() + 4 * rows
+    return flops, nbytes
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_backward(q, k, v, dout, causal, window):
+    """One SDPA forward at the kernel's shape (GQA, the window or Tq < Tk
+    as a boolean mask) on the first backend that takes it, and a function
+    that runs its backward at ``dout``: (backend name, fn)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    B, KVH, G, Tq, D = q.shape
+    qs = q.reshape(B, KVH * G, Tq, D).detach().requires_grad_()
+    ks, vs = k.detach().requires_grad_(), v.detach().requires_grad_()
+    ds = dout.reshape(B, KVH * G, Tq, v.shape[-1])
+    mask = (None if window is None and Tq == k.shape[2] else
+            fa.position_mask(Tq, k.shape[2], causal, window, q.device))
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # the backends it skips
+                out = F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True)
+                torch.autograd.grad(out, (qs, ks, vs), ds, retain_graph=True)
+        except RuntimeError:
+            continue
+        return name, lambda: torch.autograd.grad(out, (qs, ks, vs), ds,
+                                                 retain_graph=True)
+    raise CheckFailed("no SDPA backend takes the backward at this shape")
+
+
+def check_flash_bwd(spec, dtype, dev, gen):
+    """The backward kernel at one shape against its plain version, from
+    the forward kernel's output and log-sum-exp; timed beside its bound,
+    the plain version and SDPA's backward (its backend named)."""
+    from repro_torch.kernels import flash_attention as fa
+    label, B, KVH, G, Tq, Tk, D, Dv, causal, window = spec
+    q = torch.randn((B, KVH, G, Tq, D), generator=gen)
+    k = torch.randn((B, KVH, Tk, D), generator=gen)
+    v = torch.randn((B, KVH, Tk, Dv), generator=gen)
+    do = torch.randn((B, KVH, G, Tq, Dv), generator=gen)
+    q, k, v, do = (t.to(dtype).to(dev).contiguous() for t in (q, k, v, do))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal, window)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal, window)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        e = (a.float() - b.float()).abs()
+        check(bool(torch.isfinite(a).all())
+              and bool((e <= atol + rtol * b.float().abs()).all()),
+              f"flash_attention_bwd {label} {dtype} {name}: off its plain "
+              f"version by {float(e.max()):.3g}")
+        err = max(err, float(e.max()))
+    ms = event_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal,
+                                                 window))
+    plain_ms = event_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, do, lse, causal, window), reps=3)
+    flops, nbytes = flash_bwd_work(q, k, v, causal, window)
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS
+                          if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    backend, sdpa_bwd = sdpa_backward(q, k, v, do, causal, window)
+    library_ms = event_ms(sdpa_bwd)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    shape = f"{label} {dt}"
+    print(f"[kernel] flash_attention_bwd {shape:34s} max|d|={err:.3g} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} "
+          f"({b_by}) library_ms={library_ms:.4f} (SDPA {backend})",
+          flush=True)
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, max_abs_err=err,
+                library_backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -1660,9 +1814,13 @@ LM_PATHS = [
     # in the time
     ("olmoe_1b_7b", ("dense", "int8", "sparse_cfmm"), OLMOE_PROMPTS,
      OLMOE_NEW, 0),
-    # MLA on the MoE FFN: f32 weights are 58.5 GiB, the int8 tree 14.6 GiB
-    ("deepseek_v2_lite_16b", ("dense", "int8"), OLMOE_PROMPTS, OLMOE_NEW,
-     0),
+    # MLA on the MoE FFN: f32 weights are 58.5 GiB, the int8 tree 14.6 GiB.
+    # `dense` at the published depth (27 layers); `int8` at 14 (the dense
+    # first layer and 13 MoE layers): its checks, host-bound (~276k
+    # launches a profiled run), took 152 s of a 1041 s run at 27 layers
+    # once the training phases joined
+    ("deepseek_v2_lite_16b", ("dense",), OLMOE_PROMPTS, OLMOE_NEW, 0),
+    ("deepseek_v2_lite_16b", ("int8",), OLMOE_PROMPTS, OLMOE_NEW, 0, 14),
     # RWKV-6: f32 weights 28.2 GiB, at its published depth
     ("rwkv6_7b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
     # Jamba: 192.1 GiB of f32 weights at 32 layers; one period of 8 layers
@@ -1880,14 +2038,15 @@ def routing_agreement(calls_a, calls_b, route_a, route_b, n_moe):
 def plain_versions(names, attention=None):
     """Substitute the named kernels' plain versions in ``ops`` for one
     run (the LM paths launch ``flash_attention``, ``cfmm_matmul`` and
-    ``sparse_matvec``); ``attention`` replaces the flash kernel's plain
-    version by another function of the same signature."""
+    ``sparse_matvec``; a training step takes the attention's gradient by
+    autograd through the plain version); ``attention`` replaces the flash
+    kernel's plain version by another function of the same signature."""
     from repro_torch.kernels import cfmm_matmul, flash_attention, ops, ref
-    plain = {"flash_attention": ("_flash_kernel", attention or
-                                 flash_attention.flash_attention_plain),
-             "cfmm_matmul": ("_cfmm_kernel", cfmm_matmul.cfmm_matmul_plain),
-             "sparse_matvec": ("sparse_matvec", ref.sparse_matvec_ref)}
-    subs = dict(plain[n] for n in names)
+    att = attention or flash_attention.flash_attention_plain
+    plain = {"flash_attention": {"_flash_kernel": att, "_flash_grad": att},
+             "cfmm_matmul": {"_cfmm_kernel": cfmm_matmul.cfmm_matmul_plain},
+             "sparse_matvec": {"sparse_matvec": ref.sparse_matvec_ref}}
+    subs = {attr: fn for n in names for attr, fn in plain[n].items()}
     orig = {name: getattr(ops, name) for name in subs}
     for name, fn in subs.items():
         setattr(ops, name, fn)
@@ -2740,6 +2899,294 @@ def _kv_leaves(cache, path=""):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH = 512, 8
+TRAIN_STEPS = 12             # SmolLM-360M's uninterrupted plain run
+TRAIN_FAIL = 8               # the crash step; the checkpoint holds step 8
+TRAIN_QAT_TO = 12            # QAT resumed from step 8: 4 steps
+GEMMA_STEPS = 4
+# the trainer warms up over 20 steps; at the JAX driver's default peak
+# (3e-3) SmolLM-360M's loss rises past step 10, at 1.5e-3 it falls over
+# the 12 steps (a scan on the card, 5e-4 to 3e-2)
+TRAIN_LR = "1.5e-3"
+# one step's gradients with the kernels against the same step with the
+# plain attention substituted, per leaf: ||g - g_plain|| / ||g_plain||
+TRAIN_GRAD_BOUND = 0.05
+
+
+def train_args(arch, steps, *extra):
+    return ["--arch", arch, "--preset", "full", "--seq", str(TRAIN_SEQ),
+            "--batch", str(TRAIN_BATCH), "--steps", str(steps),
+            "--lr", TRAIN_LR, "--log-every", "1", "--device", "cuda",
+            *extra]
+
+
+def train_launches(cfg) -> tuple:
+    """(flash forward, flash backward) launches per training step: the
+    template layers run their attention forward twice (once more when the
+    remat recomputes them in the backward pass), the prefix and suffix
+    layers once; one backward per attention layer."""
+    from repro_torch.models import lm
+    sigs = cfg.layer_sigs()
+    pre, period, groups, _ = lm.group_layers(sigs)
+    attn = [s["kind"] == "attn" for s in sigs]
+    templ = sum(attn[pre:pre + period * groups])
+    return (2 if cfg.remat else 1) * templ + sum(attn) - templ, sum(attn)
+
+
+def train_run(kernels, label, argv, cfg, expect_exit=None):
+    """One ``repro_torch.launch.train.main`` run on the card, launch
+    counters zeroed just before it: per-step losses (exact floats), the
+    median step time (steps after the run's first), tokens/s, the peak
+    device memory, and the flash launches checked per step."""
+    from repro_torch.launch import train
+    hist = []
+    zero_launches(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    code = None
+    try:
+        train.main(argv, on_step=lambda step, m, dt: hist.append(
+            (step, m, dt)))
+    except SystemExit as e:
+        code = e.code
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(code == expect_exit, f"train {label}: exit {code}, want "
+          f"{expect_exit}")
+    check(hist and all(np.isfinite(m["loss"]) for _, m, _ in hist),
+          f"train {label}: non-finite loss")
+    counts = {n: k.launches for n, k in kernels.items() if k.launches}
+    fwd, bwd = train_launches(cfg)
+    n = len(hist)
+    want = {"flash_attention": fwd * n, "flash_attention_bwd": bwd * n}
+    check(counts == want, f"train {label}: launches {counts}, want {want} "
+          f"over {n} steps")
+    step_s = float(np.median([dt for _, _, dt in hist[1:]] or
+                             [hist[0][2]]))
+    res = dict(steps=[s for s, _, _ in hist],
+               loss=[m["loss"] for _, m, _ in hist],
+               grad_norm=[m["grad_norm"] for _, m, _ in hist],
+               step_ms=1e3 * step_s,
+               tok_s=TRAIN_BATCH * TRAIN_SEQ / step_s, wall_s=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               counts=counts, flash_fwd_per_step=fwd,
+               flash_bwd_per_step=bwd)
+    print(f"[train] {label}: {n} steps, median step {res['step_ms']:.1f} ms "
+          f"({res['tok_s']:.0f} train tok/s), loss {res['loss'][0]:.4f} -> "
+          f"{res['loss'][-1]:.4f}, peak {res['peak_gib']:.2f} GiB, flash "
+          f"launches per step {fwd} forward / {bwd} backward, wall "
+          f"{wall:.1f}s", flush=True)
+    return res
+
+
+def profile_train_step(cfg, label):
+    """Where one training step's device time goes (fresh seeded weights,
+    one warm-up step first): the forward with its loss, the backward
+    (which recomputes every template layer), and AdamW, each between CUDA
+    events; the recompute's share measured as one more forward of the
+    layer stack (the work the remat repeats); then the whole step under
+    ``torch.profiler``: wall time, device busy time and idle share, and
+    the flash kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import nn
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.models import lm
+    from repro_torch.training import optimizer
+    from repro_torch.training.train_step import make_train_step
+    dev = torch.device("cuda")
+    params = nn.unbox(lm.init(torch.Generator(device=dev).manual_seed(0),
+                              cfg))
+    opt_state = optimizer.init(params)
+    opt_cfg = optimizer.OptConfig(lr=3e-3, warmup_steps=20,
+                                  total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, opt_cfg)
+    data = SyntheticDataset(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    params, opt_state, _ = step(params, opt_state, batch)     # warm-up
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = nn.tree_leaves(params)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    it = iter(live)
+    p = nn.tree_map(lambda _: next(it), params)
+    torch.cuda.synchronize()
+    ev[0].record()
+    logits, aux = lm.forward_train(p, batch, cfg)
+    loss, _ = lm.loss_fn(logits, batch["labels"], aux)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, live)
+    ev[2].record()
+    it = iter(grads)
+    optimizer.apply_updates(params, nn.tree_map(lambda _: next(it), params),
+                            opt_state, opt_cfg)
+    ev[3].record()
+    ev[3].synchronize()
+    fwd_ms, bwd_ms, opt_ms = (ev[i].elapsed_time(ev[i + 1])
+                              for i in range(3))
+    del logits, loss, grads, live, p
+    with torch.no_grad():
+        x = lm._embed_tokens(params, batch["tokens"], cfg)
+        pos = lm._positions(cfg, batch, TRAIN_BATCH, TRAIN_SEQ).to(dev)
+        re_ms = event_ms(lambda: lm._run_stack(params, x, cfg,
+                                               lm._grouping_info(cfg), pos),
+                         reps=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_kernels(prof)
+    busy_ms = sum(ms for ms, _ in events.values())
+    flash_fwd = sum(ms for key, (ms, _) in events.items()
+                    if "::flash_mma_kernel<" in key
+                    or "::flash_kernel<" in key)
+    flash_bwd = sum(ms for key, (ms, _) in events.items()
+                    if "::flash_bwd_" in key)
+    idle = 1 - busy_ms / wall_ms if events else None
+    print(f"[train] {label} step breakdown: forward + loss {fwd_ms:.1f} ms, "
+          f"backward {bwd_ms:.1f} ms (of which the recompute, one stack "
+          f"forward, ~{re_ms:.1f} ms), AdamW {opt_ms:.1f} ms; profiled step "
+          f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+          f"{'not measured' if idle is None else f'{100 * idle:.1f}%'}; "
+          f"flash forward {flash_fwd:.1f} ms, flash backward "
+          f"{flash_bwd:.1f} ms", flush=True)
+    top = sorted(events.items(), key=lambda kv: -kv[1][0])[:6]
+    for key, (ms, n) in top:
+        print(f"[train]   {ms:8.3f} ms x{n:5d}  {key[:110]}", flush=True)
+    return dict(forward_ms=fwd_ms, backward_ms=bwd_ms, recompute_ms=re_ms,
+                adamw_ms=opt_ms, wall_ms=wall_ms, busy_ms=busy_ms,
+                idle=idle, flash_fwd_ms=flash_fwd, flash_bwd_ms=flash_bwd)
+
+
+def grad_rel_l2(g_a, g_b) -> dict:
+    """leaf name -> ||g_a - g_b|| / ||g_b|| over two gradient trees."""
+    from repro_torch import nn
+    return {"/".join(map(str, path)): float(
+        torch.linalg.vector_norm((a - b).float())
+        / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+        for (path, a), (_, b) in zip(nn.tree_flatten_with_path(g_a),
+                                     nn.tree_flatten_with_path(g_b))}
+
+
+def grads_against_plain(cfg, label):
+    """One step's gradients (fresh seeded weights, batch 0) with the
+    flash kernels against the same step with the plain attention
+    substituted (``plain_versions``: autograd through
+    ``flash_attention_plain``): per-leaf relative L2 within
+    ``TRAIN_GRAD_BOUND``.  Two witnesses beside it: SDPA's autograd in
+    place of the plain attention (a third implementation: the spread two
+    correct bf16 attentions show) and a planted lost KV tile
+    (``lost_tile_attention``), which must read above the bound."""
+    from repro_torch import nn
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.models import lm
+    from repro_torch.training.train_step import value_and_grad
+    dev = torch.device("cuda")
+    params = nn.unbox(lm.init(torch.Generator(device=dev).manual_seed(0),
+                              cfg))
+    data = SyntheticDataset(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    loss_k, _, g_k = value_and_grad(params, batch, cfg)
+    with plain_versions(["flash_attention"]):
+        loss_p, _, g_p = value_and_grad(params, batch, cfg)
+    rel = grad_rel_l2(g_k, g_p)
+    del g_k
+    with plain_versions(["flash_attention"], attention=sdpa_attention):
+        sdpa = max(grad_rel_l2(value_and_grad(params, batch, cfg)[2],
+                               g_p).values())
+    with plain_versions(["flash_attention"], attention=lost_tile_attention):
+        lost = max(grad_rel_l2(value_and_grad(params, batch, cfg)[2],
+                               g_p).values())
+    worst = max(rel, key=rel.get)
+    print(f"[train] {label} gradients, kernels vs plain attention: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}; per-leaf relative "
+          f"L2 max {rel[worst]:.3g} ({worst}), median "
+          f"{float(np.median(list(rel.values()))):.3g}; bound "
+          f"{TRAIN_GRAD_BOUND}; witnesses: SDPA vs plain {sdpa:.3g}, a "
+          f"planted lost KV tile {lost:.3g}", flush=True)
+    check(rel[worst] <= TRAIN_GRAD_BOUND,
+          f"{label}: gradient {worst} off the plain attention's by "
+          f"{rel[worst]:.3g}")
+    check(lost > TRAIN_GRAD_BOUND,
+          f"{label}: the planted lost tile reads {lost:.3g}, within the "
+          f"bound")
+    return dict(loss=float(loss_k), loss_plain=float(loss_p),
+                max_rel_l2=rel[worst], leaf=worst,
+                median_rel_l2=float(np.median(list(rel.values()))),
+                sdpa_vs_plain=sdpa, planted_lost_tile=lost)
+
+
+def train_phase(kernels, card):
+    """``repro_torch.launch.train.main`` on the card at full width, seq
+    512, batch 8, Markov data, with ``torch.use_deterministic_algorithms``
+    on (the embedding's backward then sums without atomics):
+    SmolLM-360M plain for ``TRAIN_STEPS`` steps (finite loss that falls),
+    the same run crashed at ``TRAIN_FAIL`` (exit 42, a checkpoint at step
+    8) and resumed (every step's loss equal to the uninterrupted run's to
+    the bit, the crashed run's steps too), QAT resumed from that
+    checkpoint (finite, and off the plain losses: the fake-quant is in
+    the forward), one step's gradients against the plain attention's, the
+    step's device time by phase; Gemma3-1B plain for ``GEMMA_STEPS``."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import build_cfg
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        cfg = build_cfg("smollm_360m", "full")
+        a = out["smollm_360m/plain"] = train_run(
+            kernels, "smollm_360m/plain", train_args("smollm_360m",
+                                                     TRAIN_STEPS), cfg)
+        check(np.mean(a["loss"][-3:]) < np.mean(a["loss"][:3]),
+              f"smollm_360m/plain: loss did not fall: {a['loss']}")
+        ck = ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(TRAIN_FAIL)]
+        b = out["smollm_360m/crash"] = train_run(
+            kernels, "smollm_360m/crash",
+            train_args("smollm_360m", TRAIN_STEPS, *ck, "--fail-at-step",
+                       str(TRAIN_FAIL)), cfg, expect_exit=42)
+        c = out["smollm_360m/resume"] = train_run(
+            kernels, "smollm_360m/resume",
+            train_args("smollm_360m", TRAIN_STEPS, *ck, "--resume"), cfg)
+        check(b["steps"] == list(range(TRAIN_FAIL))
+              and c["steps"] == list(range(TRAIN_FAIL, TRAIN_STEPS)),
+              f"crash/resume steps {b['steps']} + {c['steps']}")
+        same = b["loss"] + c["loss"] == a["loss"]
+        diff = max(abs(x - y) for x, y in zip(b["loss"] + c["loss"],
+                                              a["loss"]))
+        print(f"[train] crash at step {TRAIN_FAIL} and resume: losses equal "
+              f"to the uninterrupted run's to the bit: {same} (max |d| "
+              f"{diff:.3g})", flush=True)
+        check(same, f"resumed losses off the uninterrupted run's by {diff}")
+        q = out["smollm_360m/qat"] = train_run(
+            kernels, "smollm_360m/qat",
+            train_args("smollm_360m", TRAIN_QAT_TO, *ck, "--resume",
+                       "--qat"), cfg)
+        dq = [x - y for x, y in zip(q["loss"], a["loss"][TRAIN_FAIL:])]
+        print(f"[train] QAT from step {TRAIN_FAIL}: loss minus the plain "
+              f"run's at the same steps {['%.4g' % d for d in dq]}",
+              flush=True)
+        check(any(d != 0 for d in dq), "QAT losses equal the plain run's")
+        a["profile"] = profile_train_step(cfg, "smollm_360m")
+        a["grads_vs_plain"] = grads_against_plain(cfg, "smollm_360m")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+    cfg = build_cfg("gemma3_1b", "full")
+    g = out["gemma3_1b/plain"] = train_run(
+        kernels, "gemma3_1b/plain", train_args("gemma3_1b", GEMMA_STEPS),
+        cfg)
+    g["profile"] = profile_train_step(cfg, "gemma3_1b")
+    print(f"[train] on {card}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the example ports
 # ---------------------------------------------------------------------------
 
@@ -2752,6 +3199,7 @@ EXAMPLES = {
     "serve_resnet50_fleet": ("conv_implicit", "cfmm_matmul"),
     "serve_model_zoo": ("conv_implicit", "conv_depthwise", "cfmm_matmul"),
     "serve_lm": ("cfmm_matmul", "sparse_matvec", "flash_attention"),
+    "train_lm": ("flash_attention", "flash_attention_bwd"),
 }
 
 
@@ -2810,6 +3258,7 @@ def main() -> int:
                "conv_depthwise": conv_depthwise.KERNEL,
                "cfmm_matmul": cfmm_matmul.KERNEL,
                "flash_attention": flash_attention.KERNEL,
+               "flash_attention_bwd": flash_attention.BWD_KERNEL,
                "block_sparse": block_sparse.KERNEL}
     t0 = time.perf_counter()
     logs = _cuda.build_all(kernels.values())
@@ -2845,6 +3294,9 @@ def main() -> int:
                                for sp in FLASH_SHAPES]
     rows["flash_attention"] += [check_flash(sp, torch.bfloat16, dev, gen)
                                 for sp in LM_FLASH_SHAPES]
+    rows["flash_attention_bwd"] = [check_flash_bwd(sp, dt, dev, gen)
+                                   for dt in (torch.bfloat16, torch.float32)
+                                   for sp in FLASH_BWD_SHAPES]
     rows["conv_depthwise"] = [check_depthwise(*s, dev, gen)
                               for s in DW_SHAPES]
     for shape, g in DW_ZERO_COUNTS:
@@ -2877,6 +3329,9 @@ def main() -> int:
         lm_served.update(serve_lm(kernels, card, *path))
         print(f"[time] LM {path[0]} done at "
               f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    trained = train_phase(kernels, card)
+    print(f"[time] training phase done at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
     examples = examples_phase(kernels)
     print(f"[time] examples done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
@@ -2894,6 +3349,9 @@ def main() -> int:
                         "src/repro/kernels/cfmm_matmul.py:44"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:84"),
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/models/attention.py:57 "
+                                "(jax.value_and_grad)"),
         "block_sparse": ("src/repro_torch/csrc/block_sparse.cu",
                          "src/repro/kernels/block_sparse.py:64"),
     }
@@ -2913,6 +3371,9 @@ def main() -> int:
         by_path.update({f"fleet/resnet50/{wave}": v["launches"][name]
                         for wave, v in fleet.items()
                         if v.get("launches", {}).get(name)})
+        by_path.update({f"train/{path}": v["counts"][name]
+                        for path, v in trained.items()
+                        if v["counts"].get(name)})
         by_path.update({f"examples/{ex}": v["launches"][name]
                         for ex, v in examples.items()
                         if v["launches"].get(name)})
@@ -2928,6 +3389,9 @@ def main() -> int:
                        f"{len(zr) - len(epi)} recounted on y, with y, amax "
                        f"and acc the same with profiling on and off; the "
                        f"profiled fleet waves ran them")
+        if name == "flash_attention_bwd":
+            status = (f"built, launched on the training paths, equal to its "
+                      f"plain version at {len(shape_rows)} shape(s)")
         if name == "block_sparse":
             by_path.update(bs_paths)
             status = (f"built, launched by the block-sparse phase (no served "
@@ -2961,6 +3425,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"dense_cnn": dense_cnn}), flush=True)
     print(json.dumps({"lm_serve": lm_served}), flush=True)
+    print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"examples": examples}), flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"[card] {card}", flush=True)

@@ -32,7 +32,8 @@ import torch
 
 from repro_torch import nn
 from repro_torch.core import cfmm
-from repro_torch.core.quantize import INT8_ACT_MAX, quantize_int7
+from repro_torch.core.quantize import (INT8_ACT_MAX, fake_quant_int7,
+                                      quantize_int7)
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.bitmap import expand_bitmap_tile
@@ -168,9 +169,10 @@ def apply_linear(w, x: torch.Tensor, qat: bool = False,
     product ``x @ W`` with W cast to x's dtype on each call, as the JAX
     package computes it (a ``jnp.matmul`` outside any kernel): no
     activation quantization, and no second copy of the weights kept in
-    x's dtype.  ``qat=True`` (fake-quantized INT7 weights under a
-    straight-through gradient) comes with the training slice (ROADMAP A8
-    step 6) and raises.
+    x's dtype.  ``qat=True`` on a dense leaf first fake-quantizes the f32
+    weight on its last axis (``fake_quant_int7``: INT7 numerics forward,
+    a straight-through gradient), then multiplies in x's dtype; a
+    compiled leaf ignores ``qat``, as in the JAX package.
 
     ``x`` is ``(..., K)`` in any float type (the LM feeds bf16
     ``(B, T, d)``): the leading axes flatten into the rows of one
@@ -185,14 +187,11 @@ def apply_linear(w, x: torch.Tensor, qat: bool = False,
     CPU, and the bit-serial product everywhere, sum in float64
     (kernels/ref.py).
     """
-    if qat:
-        raise NotImplementedError(
-            "apply_linear(qat=True) is not ported: fake_quant_int7 and its "
-            "straight-through gradient come with training (ROADMAP A8 "
-            "step 6)")
     if isinstance(w, nn.Param):
         w = w.value
     if not isinstance(w, dict):                    # dense
+        if qat:
+            w = fake_quant_int7(w.float(), axis=-1)
         return torch.matmul(x, w.to(x.dtype))
     assert "geom" not in w, "compiled conv leaf: use apply_conv"
     lead = tuple(x.shape[:-1])

@@ -1,6 +1,6 @@
-"""INT7 per-output-channel weight / INT8 activation quantization (ports
-``repro/core/quantize.py``, all but the QAT fake-quant, which belongs to
-the training path).
+"""INT7 per-output-channel weight / INT8 activation quantization, and the
+straight-through INT7 fake-quant that QAT trains through (ports
+``repro/core/quantize.py``).
 
 Weights: symmetric per-output-channel INT7 (|q| <= 63, the range of the
 paper's six ternary residual terms), stored in int8.  Activations: INT8,
@@ -68,6 +68,33 @@ def quantize_act_int8(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     q = torch.clamp(torch.round(x / scale), -INT8_ACT_MAX, INT8_ACT_MAX)
     return QTensor(q.to(torch.int8), scale, 0 if per_row else -1)
+
+
+class _SteRound(torch.autograd.Function):
+    """``round`` (half to even, as ``jnp.round``) with the identity as its
+    gradient: the straight-through estimator of ``_ste_round``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def fake_quant_int7(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """QAT fake-quant: INT7 forward numerics, straight-through gradient.
+    ``clip(round(w / scale), -63, 63) * scale`` with the per-channel scale
+    of ``quantize_int7`` (a true division, as the JAX package's); the
+    gradient passes the round as the identity, and flows through the
+    scale and the clip as JAX's autodiff takes them."""
+    scale = _channel_scale(w, axis, INT7_MAX)
+    lim = torch.tensor(float(INT7_MAX), dtype=w.dtype, device=w.device)
+    # jnp.clip is maximum then minimum, whose gradients split a tie in
+    # half: torch.maximum/minimum do the same, torch.clamp does not
+    q = torch.minimum(torch.maximum(_SteRound.apply(w / scale), -lim), lim)
+    return q * scale
 
 
 def ternary_residual_decompose(q: torch.Tensor, terms: int = 6) -> torch.Tensor:

@@ -8,7 +8,11 @@
 //   mask by absolute position: key < Tk, causal key <= qpos, window
 //   key > qpos - window; masked s = -1e30 and masked p = 0;
 //   online softmax with m, l in f32; p rounded to v's type before p . v;
-//   out = acc / max(l, 1e-30) in v's type.
+//   out = acc / max(l, 1e-30) in v's type;
+//   optionally lse = m + log(max(l, 1e-30)) per row in f32 (natural log of
+//   the row's sum of exp(s)), the one statistic the backward kernel
+//   (flash_attention_bwd.cu) needs to rebuild p; null on the serve paths,
+//   which then write nothing more.
 // This is what the Pallas kernel computes, tile for tile.  Tiles wholly
 // above the causal diagonal or left of the window are skipped; the ragged
 // edges (Tq, Tk not multiples of a tile) are masked, so no input is ever
@@ -132,8 +136,9 @@ __global__ void __launch_bounds__(TC_WARPS * 32)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int G, int Tq, int Tk,
-                 int bq, int causal, int window, float scale_log2) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int G, int Tq, int Tk, int bq, int causal, int window,
+                 float scale_log2) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   constexpr int ds = D + 8, dvs = Dv + 8; // padded row strides (elements)
   constexpr int d8 = D / 8, dv8 = Dv / 8, DT = D / 16, DVT = Dv / 16;
@@ -345,6 +350,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int t = t0 + r / G;
     if (r >= rows || t >= Tq) continue;
     const float denom = fmaxf(l[h], 1e-30f);
+    // m is in log2 units of the scaled scores
+    if (lse != nullptr && c4 == 0)
+      lse[((size_t)bh * G + r % G) * Tq + t] =
+          (m[h] + log2f(denom)) * 0.69314718055994531f;
     __nv_bfloat16* orow = ob + ((size_t)(r % G) * Tq + t) * Dv;
 #pragma unroll
     for (int n = 0; n < 2 * DVT; ++n)
@@ -356,6 +365,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 struct MmaArgs {
   const void *q, *k, *v;
   void* out;
+  float* lse;
   int BH, G, Tq, Tk, causal, window;
   float scale;
   cudaStream_t stream;
@@ -378,8 +388,8 @@ int launch_mma(const MmaArgs& a) {
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.out), a.G, a.Tq, a.Tk, bq, a.causal,
-      a.window, a.scale * LOG2E);
+      static_cast<__nv_bfloat16*>(a.out), a.lse, a.G, a.Tq, a.Tk, bq,
+      a.causal, a.window, a.scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -437,9 +447,9 @@ __host__ __device__ constexpr size_t smem_floats(int D, int Dv) {
 template <typename T, int NACC>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int G, int Tq,
-             int Tk, int D, int Dv, int bq, int causal, int window,
-             float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int G, int Tq, int Tk, int D, int Dv,
+             int bq, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ks = D + 1;                   // padded: conflict-free for even D
   float* q_s = smem;                      // [rows][D]
@@ -538,6 +548,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int g = r / bq, t = t0 + r - g * bq;
     if (t >= Tq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)bh * G + g) * Tq + t] = m[i] + logf(denom);
     T* orow = ob + ((size_t)g * Tq + t) * Dv;
 #pragma unroll
     for (int c = 0; c < NACC; ++c) {
@@ -549,8 +561,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NACC>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 int BH, int G, int Tq, int Tk, int D, int Dv, int causal,
-                 int window, float scale, cudaStream_t stream) {
+                 float* lse, int BH, int G, int Tq, int Tk, int D, int Dv,
+                 int causal, int window, float scale, cudaStream_t stream) {
   static bool configured = false;         // once per instance, before any
   if (!configured) {                      // CUDA-graph capture
     cudaError_t e = cudaFuncSetAttribute(
@@ -564,22 +576,22 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   const size_t smem = smem_floats(D, Dv) * sizeof(float);
   flash_kernel<T, NACC><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), G, Tq, Tk, D, Dv, bq,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, G, Tq, Tk, D, Dv,
+      bq, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_nacc(const void* q, const void* k, const void* v, void* out,
-                int BH, int G, int Tq, int Tk, int D, int Dv, int causal,
-                int window, float scale, cudaStream_t stream) {
+                float* lse, int BH, int G, int Tq, int Tk, int D, int Dv,
+                int causal, int window, float scale, cudaStream_t stream) {
   if (Dv <= 64)
-    return launch_typed<T, 2>(q, k, v, out, BH, G, Tq, Tk, D, Dv, causal,
-                              window, scale, stream);
+    return launch_typed<T, 2>(q, k, v, out, lse, BH, G, Tq, Tk, D, Dv,
+                              causal, window, scale, stream);
   if (Dv <= 128)
-    return launch_typed<T, 4>(q, k, v, out, BH, G, Tq, Tk, D, Dv, causal,
-                              window, scale, stream);
-  return launch_typed<T, 8>(q, k, v, out, BH, G, Tq, Tk, D, Dv, causal,
+    return launch_typed<T, 4>(q, k, v, out, lse, BH, G, Tq, Tk, D, Dv,
+                              causal, window, scale, stream);
+  return launch_typed<T, 8>(q, k, v, out, lse, BH, G, Tq, Tk, D, Dv, causal,
                             window, scale, stream);
 }
 
@@ -587,10 +599,12 @@ int launch_nacc(const void* q, const void* k, const void* v, void* out,
 
 // variant 1: flash_mma_kernel (bf16; D, Dv each 16, 32, 64 or 128);
 // variant 0: flash_kernel.  The wrapper's ``variant`` rule picks one.
+// lse: (BH, G, Tq) f32 row log-sum-exp for the backward, or null.
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue (1)
 // for shapes the chosen kernel does not take (the wrapper checks first).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int BH,
+                                      const void* v, void* out, void* lse,
+                                      int BH,
                                       int G, int Tq, int Tk, int D, int Dv,
                                       int causal, int window, int bf16,
                                       int variant, float scale,
@@ -604,7 +618,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                   reinterpret_cast<uintptr_t>(k) |
                   reinterpret_cast<uintptr_t>(v)) % 16)
       return (int)cudaErrorInvalidValue;
-    const MmaArgs a{q, k, v, out, BH, G, Tq, Tk, causal, window, scale, s};
+    const MmaArgs a{q, k, v, out, static_cast<float*>(lse), BH, G, Tq, Tk,
+                    causal, window, scale, s};
     switch (D) {
       case 16: return launch_mma_dv<16>(a, Dv);
       case 32: return launch_mma_dv<32>(a, Dv);
@@ -613,9 +628,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     }
     return (int)cudaErrorInvalidValue;
   }
+  float* lse_f = static_cast<float*>(lse);
   if (bf16)
-    return launch_nacc<__nv_bfloat16>(q, k, v, out, BH, G, Tq, Tk, D, Dv,
-                                      causal, window, scale, s);
-  return launch_nacc<float>(q, k, v, out, BH, G, Tq, Tk, D, Dv, causal,
-                            window, scale, s);
+    return launch_nacc<__nv_bfloat16>(q, k, v, out, lse_f, BH, G, Tq, Tk, D,
+                                      Dv, causal, window, scale, s);
+  return launch_nacc<float>(q, k, v, out, lse_f, BH, G, Tq, Tk, D, Dv,
+                            causal, window, scale, s);
 }

@@ -23,9 +23,12 @@ from repro_torch.kernels.cfmm_matmul import cfmm_matmul as _cfmm_kernel
 from repro_torch.kernels.conv_depthwise import conv2d_dw as _dw_kernel
 from repro_torch.kernels.conv_implicit import conv2d_implicit
 from repro_torch.kernels.conv_sparse import conv2d_sparse
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_kernel
 from repro_torch.kernels.sparse_matvec import sparse_matvec
+
+_flash_grad = FlashAttention.apply
 
 INV_127 = 1.0 / 127.0      # rounds to XLA's folded f32(1/127) constant
 
@@ -94,9 +97,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, KVH, G, Tq, D); k: (B, KVH, Tk, D); v: (B, KVH, Tk, Dv).  The
     JAX op pads to whole Pallas tiles (``_largest_tile``); the CUDA kernel
-    masks its ragged edges itself, so no tile search or pad is needed."""
-    return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                         causal, window)
+    masks its ragged edges itself, so no tile search or pad is needed.
+    When autograd needs a gradient of q, k or v it goes through the
+    ``FlashAttention`` function (forward with the log-sum-exp, the
+    backward kernel); otherwise it is the forward alone, as served."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _flash_grad(q, k, v, causal, window)
+    return _flash_kernel(q, k, v, causal, window)
 
 
 def conv2d(x_q: torch.Tensor, codes, k: int, stride: int, *, x_scale,

@@ -14,50 +14,16 @@ raises when CUDA is absent otherwise.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ARCH_IDS, MLAConfig, get_config
+from repro_torch.configs.base import ARCH_IDS
 from repro_torch.launch.mesh import resolve_device
+from repro_torch.launch.train import PRESETS, build_cfg
 from repro_torch.models import lm
 from repro_torch.serving.engine import Request, ServingEngine
-
-# A copy of ``PRESETS`` and ``build_cfg`` from repro/launch/train.py: the
-# training driver is not ported yet (ROADMAP A8).
-PRESETS = {
-    # (layers, d_model, heads, kv, head_dim, d_ff, vocab, seq, batch)
-    "tiny": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
-                 head_dim=32, d_ff=256, vocab=512),
-    "100m": dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
-                 head_dim=64, d_ff=2048, vocab=8192),
-    "full": {},
-}
-
-
-def build_cfg(arch: str, preset: str):
-    cfg = get_config(arch)
-    over = dict(PRESETS[preset])
-    if preset != "full" and cfg.moe is not None:
-        over["moe"] = dataclasses.replace(cfg.moe, n_experts=8,
-                                          top_k=min(cfg.moe.top_k, 2),
-                                          d_ff_expert=over["d_ff"] // 4)
-    if preset != "full" and cfg.ssm is not None:
-        if cfg.ssm.kind == "mamba":
-            over["ssm"] = dataclasses.replace(cfg.ssm,
-                                              d_inner=2 * over["d_model"],
-                                              d_state=8, dt_rank=16)
-        else:
-            over["ssm"] = dataclasses.replace(cfg.ssm, head_dim=32)
-    if preset != "full" and cfg.mla is not None:
-        over["mla"] = MLAConfig(kv_lora=64, qk_nope=32, qk_rope=16, v_dim=32)
-        over["head_dim"] = 48
-    if preset != "full" and cfg.encoder_decoder:
-        over["n_enc_layers"] = 2
-        over["dec_len"] = 32
-    return dataclasses.replace(cfg, **over) if over else cfg
 
 
 def main(argv=None):

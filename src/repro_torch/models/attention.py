@@ -92,7 +92,7 @@ def gqa_init(gen, cfg):
 
 
 def gqa_forward(p, x, cfg, positions, window=None, causal=True,
-                cache=None, cross_kv=None):
+                cache=None, cross_kv=None, qat=False):
     """Returns (out, new_cache).  cache: dict(k, v: (B, S_max, KVH, D),
     length: host int32 scalar) — None for a cacheless forward; T == 1
     with a cache is a decode step (append), T > 1 a prefill (write the
@@ -101,9 +101,9 @@ def gqa_forward(p, x, cfg, positions, window=None, causal=True,
         raise NotImplementedError(f"encoder-decoder cross attention {_A8}")
     B, T, d = x.shape
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_linear(p["q"], x).reshape(B, T, H, D)
-    k = apply_linear(p["k"], x).reshape(B, T, KVH, D)
-    v = apply_linear(p["v"], x).reshape(B, T, KVH, D)
+    q = apply_linear(p["q"], x, qat).reshape(B, T, H, D)
+    k = apply_linear(p["k"], x, qat).reshape(B, T, KVH, D)
+    v = apply_linear(p["v"], x, qat).reshape(B, T, KVH, D)
     if "qn" in p:
         q = rmsnorm(p["qn"], q)
         k = rmsnorm(p["kn"], k)
@@ -124,13 +124,14 @@ def gqa_forward(p, x, cfg, positions, window=None, causal=True,
             cv[:, idx:idx + 1] = v.to(cv.dtype)
             new_cache = {"k": ck, "v": cv, "length": cache["length"] + 1}
             out = decode_attention(q, ck, cv, idx + 1, window)
-            return apply_linear(p["o"], out.reshape(B, 1, H * D)), new_cache
+            return (apply_linear(p["o"], out.reshape(B, 1, H * D), qat),
+                    new_cache)
         ck[:, :T] = k.to(ck.dtype)      # prefill: write the whole prompt
         cv[:, :T] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv,
                      "length": torch.tensor(T, dtype=torch.int32)}
     o = gqa_attention(q, k, v, causal=causal, window=window)
-    return apply_linear(p["o"], o.reshape(B, T, H * D)), new_cache
+    return apply_linear(p["o"], o.reshape(B, T, H * D), qat), new_cache
 
 
 def decode_attention(q, ck, cv, length, window=None, scales=None):
@@ -192,7 +193,7 @@ def mla_init(gen, cfg):
     }
 
 
-def mla_forward(p, x, cfg, positions, cache=None):
+def mla_forward(p, x, cfg, positions, cache=None, qat=False):
     """Returns (out, new_cache).  cache: dict(c_kv (B, S_max, kv_lora),
     k_rope (B, S_max, qk_rope), length: host int32 scalar) or None.  With
     a cache, T == 1 is a decode step (the absorbed path), T > 1 a prefill
@@ -201,10 +202,10 @@ def mla_forward(p, x, cfg, positions, cache=None):
     m = cfg.mla
     B, T, _ = x.shape
     H = cfg.n_heads
-    q = apply_linear(p["q"], x).reshape(B, T, H, m.qk_nope + m.qk_rope)
+    q = apply_linear(p["q"], x, qat).reshape(B, T, H, m.qk_nope + m.qk_rope)
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    down = apply_linear(p["kv_down"], x)
+    down = apply_linear(p["kv_down"], x, qat)
     # rmsnorm's own eps (1e-6), not cfg.norm_eps, as the JAX package
     c_kv = rmsnorm(p["kv_norm"], down[..., :m.kv_lora])        # (B,T,lora)
     k_rope = apply_rope(down[..., None, m.kv_lora:], positions,
@@ -222,7 +223,7 @@ def mla_forward(p, x, cfg, positions, cache=None):
             o = mla_absorbed_attention(p, q_nope, q_rope, cc, cr, idx + 1,
                                        cfg)
             out = o.reshape(B, 1, H * m.v_dim).to(x.dtype)
-            return apply_linear(p["o"], out), new_cache
+            return apply_linear(p["o"], out, qat), new_cache
         cc[:, :T] = c_kv.to(cc.dtype)   # prefill: write the whole prompt
         cr[:, :T] = k_rope.to(cr.dtype)
         new_cache = {"c_kv": cc, "k_rope": cr,
@@ -230,13 +231,14 @@ def mla_forward(p, x, cfg, positions, cache=None):
     # expanded path (prefill, or no cache): per-head keys and values; the
     # shared rotary key is copied to every head (the kernel reads a real
     # tensor, never a stride-0 view)
-    k_nope = apply_linear(p["k_up"], c_kv).reshape(B, T, H, m.qk_nope)
-    v = apply_linear(p["v_up"], c_kv).reshape(B, T, H, m.v_dim)
+    k_nope = apply_linear(p["k_up"], c_kv, qat).reshape(B, T, H, m.qk_nope)
+    v = apply_linear(p["v_up"], c_kv, qat).reshape(B, T, H, m.v_dim)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, T, H, m.qk_rope)],
                   dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     o = gqa_attention(qf, k, v, causal=True)
-    return apply_linear(p["o"], o.reshape(B, T, H * m.v_dim)), new_cache
+    return (apply_linear(p["o"], o.reshape(B, T, H * m.v_dim), qat),
+            new_cache)
 
 
 def mla_absorbed_attention(p, q_nope, q_rope, cc, cr, length, cfg):

@@ -86,14 +86,14 @@ def ffn_init(gen, d, d_ff, gated=True, suffix=("ffn_in", "ffn_out")):
     return p
 
 
-def ffn(p, x, act="silu"):
+def ffn(p, x, act="silu", qat=False):
     actf = _ACTS[act]
-    up = apply_linear(p["up"], x)
+    up = apply_linear(p["up"], x, qat)
     if "gate" in p:
-        h = actf(apply_linear(p["gate"], x)) * up
+        h = actf(apply_linear(p["gate"], x, qat)) * up
     else:
         h = actf(up)
-    return apply_linear(p["down"], h)
+    return apply_linear(p["down"], h, qat)
 
 
 # ---------------------------------------------------------------------------
@@ -113,12 +113,13 @@ def lm_head_init(gen, d, vocab):
     return {"w": nn.linear_param(gen, d, vocab, ("embed", "vocab"))}
 
 
-def lm_head(params, x, tied_embed=None):
+def lm_head(params, x, tied_embed=None, qat=False):
     """Logits in ``x.dtype``.  The tied head is ``x @ table.T`` with the
     table cast to ``x.dtype``, as in the JAX package; the product of the
     two rounded operands is summed in f32 (a torch matmul, not a kernel
-    of the port) and rounded once to ``x.dtype``."""
+    of the port) and rounded once to ``x.dtype``.  ``qat`` reaches the
+    untied head only, as in the JAX package."""
     if tied_embed is not None:
         w = tied_embed.to(x.dtype).float()
         return (x.float() @ w.t()).to(x.dtype)
-    return apply_linear(params["w"], x)
+    return apply_linear(params["w"], x, qat)

@@ -13,11 +13,11 @@ or MoE FFNs (OLMoE, models/moe.py; ``moe_pattern`` mixes both in one
 template), sliding-window layers, the recurrent mixers of
 models/ssm.py (RWKV-6 with its channel-mix FFN; Mamba, which Jamba
 interleaves with attention and the MoE), the full forward
-(``forward_train`` without QAT or remat, with the MoE aux summed over the
-layers), prefill (with the serving engine's bucketed ``length`` path for
-attention-only stacks) and decode, on compiled or dense (float) weight
-leaves.  The encoder-decoder, M-RoPE and QAT raise
-``NotImplementedError`` (ROADMAP A8).
+(``forward_train``, with QAT, the per-layer remat, and the MoE aux summed
+over the layers) and its loss (``loss_fn``), prefill (with the serving
+engine's bucketed ``length`` path for attention-only stacks) and decode,
+on compiled or dense (float) weight leaves.  The encoder-decoder and
+M-RoPE raise ``NotImplementedError`` (ROADMAP A8).
 
 Cache counters (``length``, ``pos``) live on the host; ``k``/``v`` (MLA:
 ``c_kv``/``k_rope``) live with the parameters and are written in place
@@ -30,6 +30,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
@@ -167,43 +168,45 @@ def block_cache_init(cfg, sig, B, S_max, cross=False, kv_dtype=None,
 
 
 def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
-                decode=False, causal=True):
+                qat=False, decode=False, causal=True):
     """Returns (x, new_cache, aux).  ``cache`` None: no state; given with
     decode=False: prefill (written from position 0; a recurrent state
-    starts from zero); with decode=True: one decode step."""
+    starts from zero); with decode=True: one decode step.  ``qat``
+    fake-quantizes every dense linear (``apply_linear``)."""
     aux = {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
     h = _norm(p["ln1"], x, cfg)
     new_cache = None
     if sig["kind"] == "attn":
         if cfg.mla:
             out, new_cache = attn.mla_forward(p["mixer"], h, cfg, positions,
-                                              cache=cache)
+                                              cache=cache, qat=qat)
         else:
             window = cfg.window if sig["attn_type"] == "local" else None
             out, new_cache = attn.gqa_forward(p["mixer"], h, cfg, positions,
                                               window=window, causal=causal,
-                                              cache=cache, cross_kv=cross_kv)
+                                              cache=cache, cross_kv=cross_kv,
+                                              qat=qat)
     elif sig["kind"] == "mamba":
         out, st = ssm_mod.mamba_forward(
-            p["mixer"], h, cfg, state=cache if decode else None)
+            p["mixer"], h, cfg, state=cache if decode else None, qat=qat)
         new_cache = st if cache is not None else None
     else:  # rwkv
         tm_state = cache["tm"] if (cache is not None and decode) else None
         out, tm_new = ssm_mod.rwkv6_forward(p["mixer"], h, cfg,
-                                            state=tm_state)
+                                            state=tm_state, qat=qat)
     if cfg.post_block_norm:
         out = _norm(p["post_ln1"], out, cfg)
     x = x + out
     h2 = _norm(p["ln2"], x, cfg)
     if sig["moe"]:
-        y, aux = moe_mod.moe_forward(p["ffn"], h2, cfg)
+        y, aux = moe_mod.moe_forward(p["ffn"], h2, cfg, qat=qat)
     elif sig["kind"] == "rwkv":
         cm_state = cache["cm"] if (cache is not None and decode) else None
-        y, cm_new = rwkv_cm(p["ffn"], h2, state=cm_state)
+        y, cm_new = rwkv_cm(p["ffn"], h2, state=cm_state, qat=qat)
         if cache is not None:
             new_cache = {"tm": tm_new, "cm": cm_new}
     else:
-        y = ffn(p["ffn"], h2, act=cfg.act)
+        y = ffn(p["ffn"], h2, act=cfg.act, qat=qat)
     if cfg.post_block_norm:
         y = _norm(p["post_ln2"], y, cfg)
     return x + y, new_cache, aux
@@ -299,9 +302,13 @@ def _restack(stacked, per_layer: list):
 
 
 def _run_stack(params, x, cfg, sigs_info, positions, cache=None,
-               cross_kv=None, decode=False, causal=True):
+               cross_kv=None, qat=False, decode=False, causal=True,
+               remat=False):
     """Prefix blocks, the template looped over its layers axis, suffix
-    blocks."""
+    blocks.  ``remat`` (training: no cache) recomputes each template
+    layer in the backward pass instead of keeping its activations
+    (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` of the scan
+    body does; the prefix and suffix run as they are, as in JAX."""
     pre, period, groups, suf = sigs_info["grouping"]
     sigs = sigs_info["sigs"]
     aux_sum = {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
@@ -309,7 +316,12 @@ def _run_stack(params, x, cfg, sigs_info, positions, cache=None,
 
     def run_one(p, x, sig, c):
         return block_apply(p, x, cfg, sig, positions, cache=c,
-                           cross_kv=cross_kv, decode=decode, causal=causal)
+                           cross_kv=cross_kv, qat=qat, decode=decode,
+                           causal=causal)
+
+    def run_layer(p, x, sig):          # (x, aux) of one cacheless layer
+        x, _, aux = run_one(p, x, sig, None)
+        return x, aux
 
     for i in range(pre):
         c = cache["prefix"][i] if cache is not None else None
@@ -319,12 +331,19 @@ def _run_stack(params, x, cfg, sigs_info, positions, cache=None,
             new_cache["prefix"].append(nc)
 
     new_layers = [[] for _ in range(period)]
+    layers = [nn.unstack(params["template"][j], groups)
+              for j in range(period)]
     for g in range(groups):
         for j in range(period):
-            c = _layer(cache["template"][j], g) if cache is not None \
-                else None
-            x, nc, aux = run_one(_layer(params["template"][j], g), x,
-                                 sigs[pre + j], c)
+            p_g = layers[j][g]
+            if remat:
+                x, aux = checkpoint(run_layer, p_g, x, sigs[pre + j],
+                                    use_reentrant=False)
+                nc = None
+            else:
+                c = _layer(cache["template"][j], g) if cache is not None \
+                    else None
+                x, nc, aux = run_one(p_g, x, sigs[pre + j], c)
             aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
             new_layers[j].append(nc)
     if cache is not None:
@@ -347,11 +366,11 @@ def _grouping_info(cfg):
     return {"sigs": sigs, "grouping": group_layers(sigs)}
 
 
-def _logits(params, x, cfg):
+def _logits(params, x, cfg, qat=False):
     x = _norm(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
         return lm_head(None, x, tied_embed=params["embed"]["table"])
-    return lm_head(params["head"], x)
+    return lm_head(params["head"], x, qat=qat)
 
 
 def _embed_tokens(params, tokens, cfg):
@@ -365,22 +384,21 @@ def _embed_tokens(params, tokens, cfg):
 def forward_train(params, batch, cfg: ArchConfig, qat=False):
     """-> (logits, aux): every position's logits, no cache.  ``aux`` is
     the MoE aux (``lb_loss``, ``z_loss``, ``dropped_frac``) summed over
-    the layers, zero for a dense stack, as the JAX package gives it.  JAX
-    rematerialises the scanned layers for the backward pass; the port has
-    no backward yet, so it runs them as they are.  ``qat=True`` comes
-    with training (ROADMAP A8 step 6)."""
-    if qat:
-        raise NotImplementedError("forward_train(qat=True) is not ported: "
-                                  "QAT comes with training (ROADMAP A8 "
-                                  "step 6)")
+    the layers, zero for a dense stack, as the JAX package gives it.
+    ``qat`` fake-quantizes every dense linear but the tied head (INT7
+    forward, straight-through gradient).  With ``cfg.remat`` (the
+    default) each template layer is recomputed in the backward pass, as
+    JAX rematerialises its scanned layers: under autograd the attention
+    forward then runs twice per layer and step."""
     if cfg.encoder_decoder:
         raise NotImplementedError(f"the encoder-decoder {_A8}")
     tokens = batch["tokens"]
     B, T = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
     positions = _positions(cfg, batch, B, T).to(x.device)
-    x, _, aux = _run_stack(params, x, cfg, _grouping_info(cfg), positions)
-    return _logits(params, x, cfg), aux
+    x, _, aux = _run_stack(params, x, cfg, _grouping_info(cfg), positions,
+                           qat=qat, remat=cfg.remat)
+    return _logits(params, x, cfg, qat), aux
 
 
 def forward_prefill(params, batch, cfg: ArchConfig, cache):
@@ -449,3 +467,20 @@ def forward_decode(params, batch, cfg: ArchConfig, cache):
                                  cache=cache, decode=True)
     new_cache["pos"] = cache["pos"] + 1
     return _logits(params, x, cfg), new_cache
+
+
+def loss_fn(logits, labels, aux=None, z_coef=1e-4, lb_coef=1e-2):
+    """Causal-LM cross entropy (next token) + MoE aux losses: the mean
+    over positions of ``logsumexp(logits) - logits[target]`` in f32, as
+    the JAX package computes it.  Returns (total, metrics)."""
+    logits = logits[:, :-1].float()
+    targets = labels[:, 1:].long().to(logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    total = ce
+    metrics = {"ce": ce}
+    if aux is not None:
+        total = total + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
+        metrics.update(aux)
+    return total, metrics

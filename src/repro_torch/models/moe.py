@@ -94,18 +94,8 @@ def route(xt: torch.Tensor, router: torch.Tensor, top_k: int,
                    slot < cap)
 
 
-def _expert(experts, e: int):
-    """Expert ``e``'s weight leaves (views of the stacked tensors)."""
-    return nn.tree_map(lambda a: a[e] if isinstance(a, torch.Tensor)
-                       else a, experts)
-
-
 def moe_forward(p, x, cfg, qat=False, capacity_factor=1.25):
     """x: (B, T, d) -> (B, T, d); also returns the aux losses dict."""
-    if qat:
-        raise NotImplementedError("moe_forward(qat=True) is not ported: "
-                                  "QAT comes with training (ROADMAP A8 "
-                                  "step 6)")
     m = cfg.moe
     B, T, d = x.shape
     E, K = m.n_experts, m.top_k
@@ -121,7 +111,8 @@ def moe_forward(p, x, cfg, qat=False, capacity_factor=1.25):
     x_e = torch.zeros((E, cap + 1, d), dtype=x.dtype, device=x.device)
     x_e[flat_e, torch.where(r.keep, r.slot, cap)] = xt[tok_id]
     x_e = x_e[:, :cap]
-    y_e = torch.stack([ffn(_expert(p["experts"], e), x_e[e], act=m.act)
+    experts = nn.unstack(p["experts"], E)
+    y_e = torch.stack([ffn(experts[e], x_e[e], act=m.act, qat=qat)
                        for e in range(E)])                  # (E, cap, d)
 
     # combine: each kept pick's output times its gate (in bf16), the K
@@ -135,7 +126,7 @@ def moe_forward(p, x, cfg, qat=False, capacity_factor=1.25):
         out = out + terms[:, k]
 
     if "shared" in p:
-        out = out + ffn(p["shared"], xt, act=m.act)
+        out = out + ffn(p["shared"], xt, act=m.act, qat=qat)
 
     # aux: load-balance loss (Switch) + router z-loss
     me = torch.mean(r.probs, dim=0)

@@ -40,6 +40,8 @@ def tree_map(fn: Callable, tree: PyTree, is_leaf: Callable | None = None):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, is_leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
     return fn(tree)
@@ -49,6 +51,39 @@ def tree_leaves(tree: PyTree, is_leaf: Callable | None = None) -> list:
     out = []
     tree_map(out.append, tree, is_leaf)
     return out
+
+
+def unstack(tree: PyTree, n: int) -> list:
+    """The ``n`` slices along the leading axis of a stacked tree (the
+    LM's ``layers``, the MoE's ``experts_stack``), as views: one
+    ``unbind`` per tensor leaf, other leaves repeated.  Under autograd
+    the slices' gradients then stack once per leaf, where ``n`` index
+    views ``a[i]`` would each scatter into a zero tensor of the whole
+    stack."""
+    split = [a.unbind(0) if isinstance(a, torch.Tensor) else (a,) * n
+             for a in tree_leaves(tree)]
+    out = []
+    for i in range(n):
+        it = iter(s[i] for s in split)
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
+def tree_flatten_with_path(tree: PyTree, path: tuple = ()) -> list:
+    """[(path, leaf)] in the JAX package's leaf order: dict keys sorted,
+    lists and tuples by index, a NamedTuple by field.  A path entry is a
+    dict key, an index, or ``".field"`` for a NamedTuple field — the
+    strings the JAX package's checkpoint names leaves by."""
+    if isinstance(tree, dict):
+        return [kv for key in sorted(tree)
+                for kv in tree_flatten_with_path(tree[key], path + (key,))]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [kv for name, sub in zip(tree._fields, tree)
+                for kv in tree_flatten_with_path(sub, path + (f".{name}",))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, sub in enumerate(tree)
+                for kv in tree_flatten_with_path(sub, path + (i,))]
+    return [(path, tree)]
 
 
 def _is_param(x) -> bool:

@@ -29,12 +29,13 @@ from repro.models import resnet as jresnet
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 NAMES = ("quickstart", "compile_resnet50", "serve_resnet50_pipeline",
-         "serve_resnet50_fleet", "serve_model_zoo", "serve_lm")
+         "serve_resnet50_fleet", "serve_model_zoo", "serve_lm", "train_lm")
 # small flags: compile_resnet50's default 64 px runs six forwards of the
 # dense reference on the CPU; 0.125 x 32 px keeps it to seconds
 FLAGS = {"compile_resnet50": ["--width", "0.125", "--hw", "32"],
          "serve_resnet50_pipeline": ["--images", "8"],
-         "serve_model_zoo": ["--images", "4"]}
+         "serve_model_zoo": ["--images", "4"],
+         "train_lm": ["--steps", "100", "--seq", "32", "--batch", "2"]}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -153,6 +154,19 @@ def test_serve_lm_param_bytes_match_jax(ran, capsys):
         assert nbytes == want, mode
     assert all(len(t) == 8 for toks in res["tokens"].values() for t in toks)
     assert "greedy-token agreement" in out
+
+
+def test_train_lm_crashes_resumes_and_learns(ran, capsys):
+    """The three phases ran: the planned crash at 60 % of 100 steps (exit
+    42), the resume from the step-50 checkpoint, and the QAT finetune
+    from the step-100 one; the Markov stream's CE ends below a uniform
+    guess over the vocabulary (ln 512)."""
+    res, out = ran("train_lm", capsys)
+    assert "crashed as planned: exit 42" in out
+    assert out.count("resumed from step 50") == 1
+    assert out.count("resumed from step 100") == 1
+    assert res["qat"]["ce"] < np.log(512) and res["resumed"]["ce"] < \
+        np.log(512)
 
 
 @pytest.mark.parametrize("name", NAMES)

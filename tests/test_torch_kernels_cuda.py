@@ -48,7 +48,12 @@ configs' served shapes: flash attention at StableLM-3B's, Gemma3-1B's
 each through the variant the rule picks; ``cfmm_matmul`` at their
 linears and untied heads (decode slots and the largest bucket);
 ``sparse_matvec`` at Gemma3-1B's linears; and one ``dense`` engine run
-at ``reduced()`` on the card against the same run on the CPU.
+at ``reduced()`` on the card against the same run on the CPU.  The
+flash-attention backward kernels against their plain version at
+chip_smoke.py's shapes (the training shapes of SmolLM-360M and Gemma3-1B,
+the served ones) and ragged ones, in f32 and bf16, the same bits on a
+second run, the forward's log-sum-exp, and ``ops.flash_attention`` under
+autograd launching one forward and one backward.
 """
 import pytest
 import torch
@@ -935,6 +940,95 @@ def test_flash_attention_rejects_what_it_does_not_take(dev):
     q, k, v = _flash_inputs(1, 1, 2, 8, 8, 16, 16, torch.float16, dev)
     with pytest.raises(ValueError, match="f32 or bf16"):
         flash_attention.flash_attention(q, k, v)
+
+
+# the backward kernels against their plain version, from the forward
+# kernel's output and log-sum-exp (chip_smoke.py's FLASH_BWD_TOL): both
+# sum in f32 in other orders and round once.  f32: 1e-4 absolute plus
+# 1e-5 relative; bf16: 1e-2 absolute plus one output ulp.
+FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-5),
+                 torch.bfloat16: (1e-2, 2.0 ** -7)}
+FLASH_BWD_SHAPES = [
+    # chip_smoke.py's: the training shapes and the served ones
+    (8, 5, 3, 512, 512, 64, 64, True, None),        # SmolLM-360M train
+    (1, 5, 3, 1024, 1024, 64, 64, True, None),
+    (1, 5, 3, 7, 1000, 64, 64, True, None),
+    (1, 12, 1, 1500, 1500, 64, 64, False, None),
+    (1, 32, 1, 1024, 1024, 80, 80, True, None),     # StableLM-3B
+    (1, 10, 4, 1024, 1024, 128, 128, True, None),   # Phi-3-medium
+    (8, 1, 4, 512, 512, 256, 256, True, 512),       # Gemma3-1B train
+    (1, 1, 4, 1024, 1024, 256, 256, True, 512),     # Gemma3-1B window
+    (1, 16, 1, 1024, 1024, 192, 128, True, None),   # DeepSeek MLA
+    # ragged edges: Tq, Tk no multiple of 32, a window narrower than a
+    # tile, G = 32 (one position per dq block), Dv != D both ways
+    (2, 2, 3, 37, 41, 16, 32, True, 5),
+    (1, 1, 32, 33, 50, 32, 32, True, 9),
+    (1, 2, 2, 65, 65, 40, 24, False, None),
+    (1, 2, 1, 1, 77, 64, 64, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KVH,G,Tq,Tk,D,Dv,causal,window",
+                         FLASH_BWD_SHAPES)
+def test_flash_attention_bwd_matches_plain(dev, B, KVH, G, Tq, Tk, D, Dv,
+                                           causal, window, dtype):
+    q, k, v = _flash_inputs(B, KVH, G, Tq, Tk, D, Dv, dtype, dev,
+                            seed=Tq + Tk + D)
+    do = torch.randn((B, KVH, G, Tq, Dv),
+                     generator=torch.Generator().manual_seed(1)).to(
+                         dtype).to(dev)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, causal, window)
+    assert torch.equal(o, flash_attention.flash_attention(q, k, v, causal,
+                                                          window))
+    _, lse_p = flash_attention.flash_attention_plain(q, k, v, causal,
+                                                     window, True)
+    assert float((lse - lse_p).abs().max()) <= 1e-5 * float(
+        lse_p.abs().max() + 1)
+    before = flash_attention.BWD_KERNEL.launches
+    got = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, causal,
+                                              window)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                     causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.BWD_KERNEL.launches == before + 1
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs()
+        assert bool((err <= atol + rtol * b.float().abs()).all()), \
+            float(err.max())
+    # deterministic: no float atomics, the same bits again
+    again = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, causal,
+                                                window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_autograd_runs_both_kernels(dev):
+    """``ops.flash_attention`` on CUDA tensors that need a gradient: one
+    forward launch (with the log-sum-exp) and one backward launch, the
+    gradients within the tolerance of autograd through the plain
+    version; without a gradient, the serve forward alone."""
+    q, k, v = _flash_inputs(2, 2, 3, 64, 64, 64, 64, torch.bfloat16, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = (flash_attention.KERNEL.launches,
+              flash_attention.BWD_KERNEL.launches)
+    out = ops.flash_attention(*leaves)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (flash_attention.KERNEL.launches - f0,
+            flash_attention.BWD_KERNEL.launches - b0) == (1, 1)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention.flash_attention_plain(
+        *ref_leaves), ref_leaves, do)
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs()
+        assert bool((err <= 2e-2 + 2.0 ** -6 * b.float().abs()).all())
+    with torch.no_grad():
+        ops.flash_attention(*leaves)
+    assert flash_attention.BWD_KERNEL.launches - b0 == 1
 
 
 @pytest.mark.parametrize("M,K,N", [(64, 960, 960), (37, 960, 320),

@@ -327,10 +327,27 @@ def test_decode_matches_full_forward(reduced, arch, monkeypatch):
 
 
 def test_forward_train_qat_raises(reduced):
+    """``forward_train(qat=True)`` (it raised before the training slice)
+    runs the INT7 fake-quant forward: finite logits off the plain ones,
+    within the INT7 error of them, and a gradient that reaches every
+    leaf through the straight-through round."""
     cfg, params = reduced("smollm_360m")
-    toks = torch.ones((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8 step 6"):
-        lm.forward_train(params, {"tokens": toks}, cfg, qat=True)
+    toks = torch.arange(1, 9, dtype=torch.long)[None]
+    with torch.no_grad():
+        plain = lm.forward_train(params, {"tokens": toks}, cfg)[0].float()
+        qat = lm.forward_train(params, {"tokens": toks}, cfg,
+                               qat=True)[0].float()
+    assert bool(torch.isfinite(qat).all()) and not torch.equal(qat, plain)
+    assert float((qat - plain).abs().max()) <= 0.06 * float(
+        plain.abs().max())
+    live = [t.detach().requires_grad_() for t in nn.tree_leaves(params)]
+    it = iter(live)
+    p = nn.tree_map(lambda _: next(it), params)
+    logits, aux = lm.forward_train(p, {"tokens": toks}, cfg, qat=True)
+    loss, _ = lm.loss_fn(logits, toks, aux)
+    grads = torch.autograd.grad(loss, live)
+    assert all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+               for g in grads)
 
 
 # ---------------------------------------------------------------------------

@@ -361,7 +361,21 @@ def test_combine_order_matches_xla_scatter(n_tok):
 
 
 def test_qat_raises(setup):
-    _, tcfg, _, tp = setup(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8 step 6"):
-        tmoe.moe_forward(tnn.unbox(tp), torch.zeros((1, 2, 128)), tcfg,
-                         qat=True)
+    """``moe_forward(qat=True)`` (it raised before the training slice)
+    fake-quantizes every expert's and shared expert's dense linears, as
+    JAX's does: y within ``Y_BOUND`` of JAX's jitted QAT forward, the aux
+    as in ``test_moe_forward_matches_jitted_jax``, and y off the plain
+    forward's."""
+    jcfg, tcfg, jp, tp = setup(2)
+    xj, xt = _x(jcfg.d_model)
+    pj, pt = _served(jp, tp, "dense")
+    yj, auxj = jax.jit(lambda p, x: jmoe.moe_forward(p, x, jcfg, qat=True))(
+        pj, xj)
+    yt, auxt = tmoe.moe_forward(pt, xt, tcfg, qat=True)
+    d = float(np.abs(np.asarray(yj.astype(jnp.float32))
+                     - yt.float().numpy()).max())
+    assert d <= Y_BOUND, d
+    for k in auxj:
+        np.testing.assert_allclose(float(auxt[k]), float(auxj[k]),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    assert not torch.equal(yt, tmoe.moe_forward(pt, xt, tcfg)[0])
