@@ -10,56 +10,76 @@
 //   online softmax with m, l in f32; p rounded to v's type before p . v;
 //   out = acc / max(l, 1e-30) in v's type;
 //   optionally lse = m + log(max(l, 1e-30)) per row in f32 (natural log of
-//   the row's sum of exp(s)), the one statistic the backward kernel
-//   (flash_attention_bwd.cu) needs to rebuild p; null on the serve paths,
+//   the row's sum of exp(s)), the one statistic the backward kernels
+//   (flash_attention_bwd.cu) need to rebuild p; null on the serve paths,
 //   which then write nothing more.
 // This is what the Pallas kernel computes, tile for tile.  Tiles wholly
 // above the causal diagonal or left of the window are skipped; the ragged
 // edges (Tq, Tk not multiples of a tile) are masked, so no input is ever
 // padded.
 //
-// What bounds it on an H100: at the LM's prefill shapes (D = 64, G = 3)
-// operations -- 2 * (D + Dv) flops per visible (query, key) pair against
-// 989 TFLOP/s bf16 on the tensor cores -- over bytes (q, k, v, o once, at
-// 3.35 TB/s).  Two kernels, chosen per call by the wrapper's rule
-// (kernels/flash_attention.py ``variant``), passed in as ``variant``:
+// What bounds it on an H100: at the served shapes operations -- 2 * (D +
+// Dv) flops per visible (query, key) pair against 989 TFLOP/s bf16 on the
+// tensor cores -- over bytes (q, k, v, o once, at 3.35 TB/s).  Two
+// kernels, chosen per call by the wrapper's rule (kernels/flash_attention.py
+// ``variant``), passed in as ``variant``:
 //
-// flash_mma_kernel (bf16, D and Dv each 16, 32, 64 or 128: every served
-// shape).  FA2-style on the tensor cores.  One block of 4 warps per (64-row
-// q tile, b * kv head); each warp owns 16 rows (one m16 tile).  GQA without
-// repeats: the 64 rows of a block are bq = 64 / G query positions of ALL G
-// groups, position-major (row r is position t0 + r / G, group r % G; at
-// G = 3, 21 positions and one padding row), so every K/V tile staged
-// serves all G groups and K/V are read once per q tile; position-major
-// keeps a warp's 16 rows within 16 / G positions, so the causal edge cuts
-// few of them.  (The other choice, a block per query head with L2 serving
-// the G repeated K/V reads, gives the same grid at T = 1024 but stages
-// each K/V tile G times.)  Q comes in once by cp.async and stays in
-// registers (ldmatrix).  K/V tiles of 64 keys stream through a two-stage
-// cp.async ring in shared memory, rows padded by 16 bytes so that ldmatrix
-// reads no bank twice.  S = Q K^T runs on mma.sync.m16n8k16 bf16 -> f32;
-// the row max and sum reduce across each quad with two shuffles; P is
-// rounded to bf16 in registers, which is the "p in v's type" rounding, and
-// feeds P V directly as the A operand, with V through ldmatrix.trans.  A
-// warp skips the tiles none of its rows can see and masks only the tiles
-// that cut its rows.  One instance per (D, Dv), so every loop over columns
-// has a fixed trip count and a tile's fragment loads and MMAs schedule as
-// one block of code; exp is MUFU's ex2 of log2(e)-scaled scores (the same
-// function, rounded otherwise; within the bf16 tolerance).
+// flash_mma_kernel (bf16 at the (D, Dv) pairs of FLASH_MMA_PAIRS below:
+// 16, 32, 64 or 128 each, and (80, 80), (192, 128), (256, 256) -- every
+// served head width).  FA2-style on the tensor cores.  One block of 4 warps
+// per (64-row q tile, b * kv head); each warp owns 16 rows (one m16 tile).
+// GQA without repeats: the 64 rows of a block are bq = 64 / G query
+// positions of ALL G groups, position-major (row r is position t0 + r / G,
+// group r % G; at G = 3, 21 positions and one padding row), so every K/V
+// tile staged serves all G groups and K/V are read once per q tile;
+// position-major keeps a warp's 16 rows within 16 / G positions, so the
+// causal edge cuts few of them.  (The other choice, a block per query head
+// with L2 serving the G repeated K/V reads, gives the same grid at T = 1024
+// but stages each K/V tile G times.)  Q comes in once by cp.async.  K/V
+// tiles of BK keys stream through a two-stage cp.async ring in shared
+// memory, rows padded by 16 bytes so that ldmatrix reads no bank twice (a
+// row of D + 8 bf16 is 16 (D / 8 + 1) bytes, an odd number of 16-byte
+// chunks for every D here, 176 bytes at D = 80: the 8 rows of one 8x8
+// matrix start in 8 distinct 16-byte bank groups).  S = Q K^T runs on
+// mma.sync.m16n8k16 bf16 -> f32; the row max and sum reduce across each
+// quad with two shuffles; P is rounded to bf16 in registers, which is the
+// "p in v's type" rounding, and feeds P V directly as the A operand, with
+// V through ldmatrix.trans.  A warp skips the tiles none of its rows can
+// see and masks only the tiles that cut its rows.  One instance per (D,
+// Dv), so every loop over columns has a fixed trip count and a tile's
+// fragment loads and MMAs schedule as one block of code; exp is MUFU's ex2
+// of log2(e)-scaled scores (the same function, rounded otherwise; within
+// the bf16 tolerance).
+//   Registers: a thread holds its two rows' output accumulators (Dv / 2
+// floats: 128 at Dv = 256) and one tile's scores (BK / 2).  Up to D = 128
+// Q's A fragments stay in registers too (D / 4); past it (D = 192, 256)
+// they would not fit beside a 256-column accumulator, so the S loop reads
+// them from the shared Q tile by ldmatrix at every k-step (one more x4
+// load per four K loads).  ptxas reports no spills for any instance.
+//   Shared memory: the Q tile and two K/V stages, (64 (D + 8) + 2 BK
+// (D + Dv + 16)) * 2 bytes.  D <= 128 takes BK = 64 keys (at most 104 KB,
+// two blocks an SM).  D > 128 takes BK = FLASH_WIDE_BK: at D = 256, 64
+// keys need 169 KB (one block an SM), 32 keys 101 KB (two blocks).
+// tools/flash_key_tile.py builds both and times them at the wide served
+// shapes (PERF.md, row 6): 64 keys are faster summed over its six shapes
+// (0.2560 ms against 0.2672 on an H100 at 700 W) and at five of them (a
+// 64-key tile takes half the trips, and barriers, of the key loop).  32
+// keys win only at Gemma3's training forward (batch 8: 256 blocks at D =
+// 256, two waves at one block an SM, one wave at two; 0.0465 ms against
+// 0.0564).  So 64 is the default.
 //
-// flash_kernel (f32, and bf16 shapes outside the rule above: D or Dv of
-// 192 or 256, or not a power of two from 16).  The CUDA-core kernel: one
-// block of 4 warps per (32 query rows = all G groups x 32 / G positions, b * kv
-// head), keys in tiles of 32 (one per lane for the scores, shuffled to
+// flash_kernel (f32, and bf16 shapes outside FLASH_MMA_PAIRS: D or Dv not
+// a multiple of 16, or pairs with no instance).  The CUDA-core kernel: one
+// block of 4 warps per (32 query rows = all G groups x 32 / G positions, b
+// * kv head), keys in tiles of 32 (one per lane for the scores, shuffled to
 // every lane for p . v), f32 FMAs.  f32 stays here: TF32 tensor-core
-// products would not hold the 2e-5 f32 tolerance, and no served path
-// runs attention in f32.  D = 256 would not fit the mma kernel's
-// registers (Q fragments and accumulators of 256 columns per row pair).
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// products would not hold the 2e-5 f32 tolerance, and no served path runs
+// attention in f32.
+#include "flash_mma.cuh"
 
 namespace {
+
+using namespace flash;
 
 // ---------------------------------------------------------------------------
 // flash_mma_kernel: bf16 on mma.sync
@@ -67,72 +87,31 @@ namespace {
 
 constexpr int TC_WARPS = 4;
 constexpr int TC_ROWS = 16 * TC_WARPS;    // query rows per block
-constexpr int TC_BK = 64;                 // keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float NEG_INF = -1e30f;          // a masked score, both kernels
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; bytes beyond src_bytes (0 or 16) are zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// 2**x, MUFU's approximation (relative error ~2**-22, far inside the bf16
-// tolerance); flushes subnormal results to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // round to nearest
-  return *reinterpret_cast<uint32_t*>(&h);
+// keys per K/V tile past D = 128 (32 or 64; see the header)
+#ifndef FLASH_WIDE_BK
+#define FLASH_WIDE_BK 64
+#endif
+static_assert(FLASH_WIDE_BK == 32 || FLASH_WIDE_BK == 64, "32 or 64 keys");
+
+__host__ __device__ constexpr int tc_bk(int D) {
+  return D > 128 ? FLASH_WIDE_BK : 64;
 }
 
 // dynamic shared memory: Q tile, then two stages of (K tile, V tile),
 // rows padded by 8 elements (16 bytes)
 __host__ __device__ constexpr size_t tc_smem_bytes(int D, int Dv) {
   return ((size_t)TC_ROWS * (D + 8) +
-          2 * (size_t)TC_BK * ((D + 8) + (Dv + 8))) * 2;
+          2 * (size_t)tc_bk(D) * ((D + 8) + (Dv + 8))) * 2;
 }
 
 // one instance per (D, Dv): every loop over columns has a fixed trip count,
-// so the fragment loads and MMAs of a tile schedule as one block of code
+// so the fragment loads and MMAs of a tile schedule as one block of code.
+// A minimum of one block an SM lets ptxas take the registers an instance
+// needs: without it, it held some (64 x 64, 64 x 16, 32 x 128, 32 x 64)
+// to 96-168 registers and spilled 4-12 bytes.
 template <int D, int Dv>
-__global__ void __launch_bounds__(TC_WARPS * 32)
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -140,82 +119,38 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  int G, int Tq, int Tk, int bq, int causal, int window,
                  float scale_log2) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
+  constexpr int BK = tc_bk(D);            // keys per tile
+  constexpr int NT = BK / 8;              // n-tiles of 8 keys
+  constexpr bool QREG = D <= 128;         // Q's fragments in registers
   constexpr int ds = D + 8, dvs = Dv + 8; // padded row strides (elements)
-  constexpr int d8 = D / 8, dv8 = Dv / 8, DT = D / 16, DVT = Dv / 16;
+  constexpr int DT = D / 16, DVT = Dv / 16;
+  constexpr int THREADS = TC_WARPS * 32;
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   __nv_bfloat16* k_s0 = q_s + TC_ROWS * ds;
-  __nv_bfloat16* v_s0 = k_s0 + TC_BK * ds;
-  constexpr int kv_stage = TC_BK * (ds + dvs);
+  __nv_bfloat16* v_s0 = k_s0 + BK * ds;
+  constexpr int kv_stage = BK * (ds + dvs);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g4 = lane >> 2, c4 = lane & 3;   // mma fragment row, column pair
   const int bh = blockIdx.y;
   const int t0 = blockIdx.x * bq;
   const int rows = G * bq;
-  const int q_off = Tk - Tq;
-  const __nv_bfloat16* qb = q + (size_t)bh * G * Tq * D;
   const __nv_bfloat16* kb = k + (size_t)bh * Tk * D;
   const __nv_bfloat16* vb = v + (size_t)bh * Tk * Dv;
   __nv_bfloat16* ob = out + (size_t)bh * G * Tq * Dv;
-
-  // the key range any row of this block can see
-  const int t_last = min(t0 + bq, Tq) - 1;
-  int kv_hi = Tk - 1, kv_lo = 0;
-  if (causal) kv_hi = min(kv_hi, q_off + t_last);
-  if (window > 0) kv_lo = max(0, q_off + t0 - window + 1);
-  const int tile_lo = kv_lo / TC_BK, tile_hi = kv_hi / TC_BK;
-
+  const int2 tiles = key_tiles(BK, t0, bq, Tq, Tk, causal, window);
+  const int tile_lo = tiles.x, tile_hi = tiles.y;
   auto load_kv = [&](int tile, int stage) {
-    __nv_bfloat16* ks = k_s0 + stage * kv_stage;
-    __nv_bfloat16* vs = v_s0 + stage * kv_stage;
-    const int kpos0 = tile * TC_BK;
-    for (int idx = tid; idx < TC_BK * d8; idx += TC_WARPS * 32) {
-      const int j = idx / d8, c = idx - j * d8;
-      const int kp = kpos0 + j;
-      cp_async16(ks + j * ds + c * 8,
-                 kb + (size_t)min(kp, Tk - 1) * D + c * 8, kp < Tk ? 16 : 0);
-    }
-    for (int idx = tid; idx < TC_BK * dv8; idx += TC_WARPS * 32) {
-      const int j = idx / dv8, c = idx - j * dv8;
-      const int kp = kpos0 + j;
-      cp_async16(vs + j * dvs + c * 8,
-                 vb + (size_t)min(kp, Tk - 1) * Dv + c * 8, kp < Tk ? 16 : 0);
-    }
+    cp_rows<BK, D, THREADS>(k_s0 + stage * kv_stage, ds, kb, tile * BK, Tk,
+                            tid);
+    cp_rows<BK, Dv, THREADS>(v_s0 + stage * kv_stage, dvs, vb, tile * BK,
+                             Tk, tid);
   };
-
-  // Q rows: row r is (group r % G, position t0 + r / G); others zeros
-  for (int idx = tid; idx < TC_ROWS * d8; idx += TC_WARPS * 32) {
-    const int r = idx / d8, c = idx - r * d8;
-    const int g = r % G, t = t0 + r / G;
-    const bool ok = r < rows && t < Tq;
-    cp_async16(q_s + r * ds + c * 8,
-               ok ? qb + ((size_t)g * Tq + t) * D + c * 8 : qb,
-               ok ? 16 : 0);
-  }
+  cp_gqa_rows<TC_ROWS, D, THREADS>(q_s, ds, q + (size_t)bh * G * Tq * D, G,
+                                   Tq, t0, rows, tid);
   cp_async_commit();
   load_kv(tile_lo, 0);
   cp_async_commit();
-
-  // this warp's rows and the keys they can see
-  const int r_first = warp * 16;
-  const int r_last = min(r_first + 15, rows - 1);
-  const bool warp_live = r_first < rows && t0 + r_first / G < Tq;
-  const int w_qlo = q_off + t0 + r_first / G;
-  const int w_qhi = q_off + min(t0 + r_last / G, Tq - 1);
-  // this thread's two rows (g4 and g4 + 8 of the warp's 16): the keys
-  // [lo, hi) they see
-  int key_lo[2], key_hi[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r_first + g4 + 8 * h;
-    const int t = t0 + r / G;
-    key_lo[h] = 0;
-    key_hi[h] = Tk;
-    if (r < rows && t < Tq) {               // a padding row sees every key
-      const int qpos = q_off + t;
-      if (causal) key_hi[h] = min(Tk, qpos + 1);
-      if (window > 0) key_lo[h] = qpos - window + 1;
-    }
-  }
+  const WarpRows wr(warp, g4, G, bq, t0, Tq, Tk, causal, window);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float o[2 * DVT][4];
@@ -223,13 +158,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int n = 0; n < 2 * DVT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  uint32_t qf[DT][4];                     // Q, A fragments of 16 columns
+  uint32_t qf[QREG ? DT : 1][4];          // Q, A fragments of 16 columns
   cp_async_wait<1>();                     // Q has landed
   __syncthreads();
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kt = 0; kt < DT; ++kt)
-    ldmatrix_x4(qf[kt], q_s + (r_first + (lane & 15)) * ds + kt * 16 +
-                            (lane >> 4) * 8);
+    for (int kt = 0; kt < DT; ++kt)
+      load_a(qf[kt], q_s, ds, wr.first, kt * 16, lane);
+  }
 
   for (int tile = tile_lo; tile <= tile_hi; ++tile) {
     const int stage = (tile - tile_lo) & 1;
@@ -237,50 +173,51 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();                   // this tile has landed
     __syncthreads();
-    const int kpos0 = tile * TC_BK;
-    const bool skip = !warp_live || (causal && kpos0 > w_qhi) ||
-                      (window > 0 && kpos0 + TC_BK - 1 <= w_qlo - window);
-    if (!skip) {
+    const int kpos0 = tile * BK;
+    if (!wr.skip(kpos0, BK, causal, window)) {
       const __nv_bfloat16* ks = k_s0 + stage * kv_stage;
       const __nv_bfloat16* vs = v_s0 + stage * kv_stage;
-      // ---- S = Q K^T: 8 n-tiles of 8 keys ----------------------------------
-      float s[8][4];
+      // ---- S = Q K^T: NT n-tiles of 8 keys ---------------------------------
+      float s[NT][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
       for (int kt = 0; kt < DT; ++kt) {
+        uint32_t a[4];
+        if constexpr (QREG) {
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
+          for (int e = 0; e < 4; ++e) a[e] = qf[kt][e];
+        } else {
+          load_a(a, q_s, ds, wr.first, kt * 16, lane);
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
           uint32_t b[4];
-          ldmatrix_x4(b, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ds +
-                             kt * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kt], b[0], b[1]);
-          mma_bf16(s[2 * np + 1], qf[kt], b[2], b[3]);
+          load_bt(b, ks, ds, np * 16, kt * 16, lane);
+          mma_bf16(s[2 * np], a, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], a, b[2], b[3]);
         }
       }
       // ---- mask (on the tiles that cut the warp's rows), online softmax --
       float mx[2] = {NEG_INF, NEG_INF};
       uint32_t seen = 0xffffffffu;        // bit 4 j + e: the key is visible
-      const bool edge = kpos0 + TC_BK > Tk || (causal && kpos0 + TC_BK - 1 >
-                                               w_qlo) ||
-                        (window > 0 && kpos0 <= w_qhi - window);
-      if (edge) {
+      if (wr.edge(kpos0, BK, Tk, causal, window)) {
         seen = 0;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int h = e >> 1;
             const int kp = kpos0 + 8 * j + 2 * c4 + (e & 1);
-            const bool ok = kp >= key_lo[h] && kp < key_hi[h];
+            const bool ok = wr.sees(h, kp);
             seen |= (uint32_t)ok << (4 * j + e);
             if (!ok) s[j][e] = NEG_INF;
           }
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
@@ -298,7 +235,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
       float rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
@@ -316,20 +253,15 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         o[n][2] *= alpha[1];
         o[n][3] *= alpha[1];
       }
-      // ---- O += P V: P in bf16 as the A operand, 4 steps of 16 keys -------
+      // ---- O += P V: P in bf16 as the A operand, steps of 16 keys ---------
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < NT / 2; ++kk) {
         uint32_t a[4];
-        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        pack_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
         for (int dp = 0; dp < DVT; ++dp) {
           uint32_t b[4];
-          ldmatrix_x4_trans(
-              b, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * dvs +
-                     dp * 16 + (lane >> 4) * 8);
+          load_b(b, vs, dvs, kk * 16, dp * 16, lane);
           mma_bf16(o[2 * dp], a, b[0], b[1]);
           mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
         }
@@ -346,7 +278,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = r_first + g4 + 8 * h;
+    const int r = wr.first + g4 + 8 * h;
     const int t = t0 + r / G;
     if (r >= rows || t >= Tq) continue;
     const float denom = fmaxf(l[h], 1e-30f);
@@ -393,20 +325,26 @@ int launch_mma(const MmaArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// D, Dv each one of 16, 32, 64, 128 (the wrapper's rule)
-template <int D>
-int launch_mma_dv(const MmaArgs& a, int Dv) {
-  switch (Dv) {
-    case 16: return launch_mma<D, 16>(a);
-    case 32: return launch_mma<D, 32>(a);
-    case 64: return launch_mma<D, 64>(a);
-    case 128: return launch_mma<D, 128>(a);
-  }
+// The (D, Dv) pairs with a flash_mma_kernel instance: the wrapper's
+// MMA_PAIRS (kernels/flash_attention.py), which a CPU test holds to this
+// list.
+#define FLASH_MMA_PAIRS(X)                                                   \
+  X(16, 16) X(16, 32) X(16, 64) X(16, 128)                                   \
+  X(32, 16) X(32, 32) X(32, 64) X(32, 128)                                   \
+  X(64, 16) X(64, 32) X(64, 64) X(64, 128)                                   \
+  X(128, 16) X(128, 32) X(128, 64) X(128, 128)                               \
+  X(80, 80) X(192, 128) X(256, 256)
+
+int launch_mma_pair(const MmaArgs& a, int D, int Dv) {
+#define FLASH_LAUNCH(d, dv) \
+  if (D == d && Dv == dv) return launch_mma<d, dv>(a);
+  FLASH_MMA_PAIRS(FLASH_LAUNCH)
+#undef FLASH_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// flash_kernel: the CUDA-core kernel (f32, and bf16 outside the mma rule)
+// flash_kernel: the CUDA-core kernel (f32, and bf16 outside the mma pairs)
 // ---------------------------------------------------------------------------
 
 constexpr int BK = 32;                    // keys per tile: one per lane
@@ -597,7 +535,7 @@ int launch_nacc(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// variant 1: flash_mma_kernel (bf16; D, Dv each 16, 32, 64 or 128);
+// variant 1: flash_mma_kernel (bf16 at the pairs of FLASH_MMA_PAIRS);
 // variant 0: flash_kernel.  The wrapper's ``variant`` rule picks one.
 // lse: (BH, G, Tq) f32 row log-sum-exp for the backward, or null.
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue (1)
@@ -620,13 +558,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
     const MmaArgs a{q, k, v, out, static_cast<float*>(lse), BH, G, Tq, Tk,
                     causal, window, scale, s};
-    switch (D) {
-      case 16: return launch_mma_dv<16>(a, Dv);
-      case 32: return launch_mma_dv<32>(a, Dv);
-      case 64: return launch_mma_dv<64>(a, Dv);
-      case 128: return launch_mma_dv<128>(a, Dv);
-    }
-    return (int)cudaErrorInvalidValue;
+    return launch_mma_pair(a, D, Dv);
   }
   float* lse_f = static_cast<float*>(lse);
   if (bf16)

@@ -21,12 +21,14 @@ Dv <= 256 (Dv may differ from D).
 What bounds it on an H100: at the served shapes, operations (the score
 and ``p.v`` flops of the visible pairs at 989 TFLOP/s bf16) over bytes
 (q, k, v and o once at 3.35 TB/s).  ``variant`` is the rule that picks
-the kernel: ``mma`` (bf16 with D and Dv each 16, 32, 64 or 128, every
-served shape) runs both products on the tensor cores (``mma.sync``
-m16n8k16, 64-row q tiles, 64-key K/V tiles in a two-stage ``cp.async``
-ring); ``fma`` (f32, whose 2e-5 tolerance TF32 would not hold, and the
-bf16 shapes outside that rule, such as D = 192 or 256) is the CUDA-core
-kernel with f32 FMAs.
+the kernel: ``mma`` (bf16 at the (D, Dv) pairs of ``MMA_PAIRS``: 16, 32,
+64 or 128 each, and (80, 80), (192, 128), (256, 256) -- every served head
+width) runs both products on the tensor cores (``mma.sync`` m16n8k16,
+64-row q tiles, K/V tiles in a two-stage ``cp.async`` ring; past D = 128
+Q's fragments are read from shared memory at every k-step, as they and a
+256-column accumulator would not both fit in registers); ``fma`` (f32,
+whose 2e-5 tolerance TF32 would not hold, and the bf16 pairs with no
+instance) is the CUDA-core kernel with f32 FMAs.
 
 The backward (``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd``)
 replaces no Pallas kernel: it is the gradient the JAX package takes by
@@ -42,6 +44,11 @@ writing dq (and the row sums ``delta = dout . o``), one dk and dv, each
 output written by one block, so no float atomics and the same bits on
 every run.  On the training path each attention layer runs the forward
 twice per step (once more under the layer remat) and the backward once.
+``bwd_variant`` picks its kernel pair: ``mma`` (bf16 at ``BWD_MMA_PAIRS``,
+the head widths of every LM config) runs all five products on the tensor
+cores, p and ds each entering its products as two bf16 operands (hi and
+lo, 16 significant bits) with f32 sums; ``fma`` (f32 and other pairs)
+the CUDA-core pair.
 ``FlashAttention`` is the autograd ``Function`` that joins the two;
 ``ops.flash_attention`` takes it when q, k or v needs a gradient.
 
@@ -58,12 +65,17 @@ from repro_torch.kernels._cuda import F32, I, P, CudaKernel, check_cuda, ptr
 KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
                     (P,) * 5 + (I,) * 10 + (F32, P))
 BWD_KERNEL = CudaKernel("flash_attention_bwd", "flash_attention_bwd_launch",
-                        (P,) * 10 + (I,) * 9 + (F32, P))
+                        (P,) * 10 + (I,) * 10 + (F32, P))
 NEG_INF = -1e30
 MAX_G = 32          # the fma kernel's block holds 32 query rows
 MAX_D = 256
-MMA_D = (16, 32, 64, 128)   # the mma kernel's instances (Q and the output
-                            # in registers: D = 256 would not fit)
+# (D, Dv) pairs with a tensor-core instance: csrc/flash_attention.cu's
+# FLASH_MMA_PAIRS and csrc/flash_attention_bwd.cu's FLASH_BWD_MMA_PAIRS
+MMA_PAIRS = frozenset({(d, dv) for d in (16, 32, 64, 128)
+                       for dv in (16, 32, 64, 128)}
+                      | {(80, 80), (192, 128), (256, 256)})
+BWD_MMA_PAIRS = frozenset({(64, 64), (80, 80), (128, 128), (192, 128),
+                           (256, 256)})
 VARIANTS = {"fma": 0, "mma": 1}
 
 
@@ -72,11 +84,25 @@ def _scale(D: int) -> float:
 
 
 def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
-    """Which kernel takes a call: ``mma`` (tensor cores) for bf16 with D
-    and Dv each 16, 32, 64 or 128, else ``fma`` (CUDA cores)."""
-    if dtype == torch.bfloat16 and D in MMA_D and Dv in MMA_D:
+    """Which forward kernel takes a call: ``mma`` (tensor cores) for bf16
+    at a pair of ``MMA_PAIRS``, else ``fma`` (CUDA cores)."""
+    if dtype == torch.bfloat16 and (D, Dv) in MMA_PAIRS:
         return "mma"
     return "fma"
+
+
+def bwd_variant(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """Which backward kernel pair takes a call: ``mma`` (tensor cores)
+    for bf16 at a pair of ``BWD_MMA_PAIRS``, else ``fma`` (CUDA cores)."""
+    if dtype == torch.bfloat16 and (D, Dv) in BWD_MMA_PAIRS:
+        return "mma"
+    return "fma"
+
+
+def _aligned(*ts):
+    """The tensors, each copied if it starts off a 16-byte boundary: the
+    ``mma`` kernels copy 16-byte rows."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
 def position_mask(Tq: int, Tk: int, causal: bool, window, device):
@@ -160,9 +186,8 @@ def _forward(q, k, v, causal, window, with_lse: bool):
         raise ValueError(f"flash_attention: window {window} < 1")
     _check(q, k, v)
     kind = variant(q.dtype, D, Dv)
-    if kind == "mma":                    # the kernel copies 16-byte rows
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
+    if kind == "mma":
+        q, k, v = _aligned(q, k, v)
     out = torch.empty((B, KVH, G, Tq, Dv), dtype=v.dtype, device=q.device)
     lse = (torch.empty((B, KVH, G, Tq), dtype=torch.float32,
                        device=q.device) if with_lse else None)
@@ -206,13 +231,17 @@ def flash_attention_bwd(q, k, v, o, dout, lse, causal: bool = True,
     check_cuda("o", o, q.dtype, (B, KVH, G, Tq, Dv))
     check_cuda("dout", dout, q.dtype, (B, KVH, G, Tq, Dv))
     check_cuda("lse", lse, torch.float32, (B, KVH, G, Tq))
+    kind = bwd_variant(q.dtype, D, Dv)
+    if kind == "mma":
+        q, k, v, dout = _aligned(q, k, v, dout)
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     BWD_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(lse),
                       ptr(delta), ptr(dq), ptr(dk), ptr(dv), B * KVH, G, Tq,
                       Tk, D, Dv, int(causal),
                       -1 if window is None else int(window),
-                      int(q.dtype == torch.bfloat16), _scale(D))
+                      int(q.dtype == torch.bfloat16), VARIANTS[kind],
+                      _scale(D))
     return dq, dk, dv
 
 

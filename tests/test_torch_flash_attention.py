@@ -151,3 +151,86 @@ def test_gqa_attention_layout_matches_jax():
     assert tuple(got4.shape) == (1, 2, 10, 16)
     np.testing.assert_allclose(got4.numpy(), np.asarray(want4), rtol=0,
                                atol=1e-5)
+
+
+# The tensor-core backward (csrc/flash_attention_bwd.cu, ``mma``) feeds p
+# and ds (f32 in the function) to the dv, dq and dk products as bf16
+# operands: each as two, hi = bf16(x) and lo = bf16(x - hi), with f32
+# sums.  Its card tolerance is FLASH_BWD_TOL's bf16 bound (chip_smoke.py,
+# tests/test_torch_kernels_cuda.py): 1e-2 absolute plus 2**-7 relative.
+MMA_BWD_TOL = (1e-2, 2.0 ** -7)
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split(t):
+    """What two bf16 operands carry of ``t``: hi + lo."""
+    hi = _bf(t)
+    return hi + _bf(t - hi)
+
+
+def _mma_bwd_replay(q, k, v, o, dout, lse, causal, window, operand=_split):
+    """``flash_attention_bwd_plain`` with the ``mma`` backward's rounding
+    points: ``operand`` (the split, or one bf16 rounding) applied to p and
+    to ds (from the f32 p) before the dv, dq and dk products."""
+    Tq, D = q.shape[-2:]
+    Tk = k.shape[2]
+    qf, kf, vf, df = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) / D ** 0.5
+    mask = tfa.position_mask(Tq, Tk, causal, window, "cpu")
+    p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", operand(p), df)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", df, vf)
+    ds = operand(p * (dp - torch.sum(df * o.float(), dim=-1, keepdim=True)))
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) / D ** 0.5
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) / D ** 0.5
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _bwd_case(B, KVH, G, Tq, Tk, D, Dv, causal, window, operand):
+    """Per output (dq, dk, dv), the replay's largest error over its
+    bound, against the plain version on the same bf16 inputs."""
+    rng = np.random.RandomState(B + G + Tq + D)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   .to(torch.bfloat16) for shape in (
+                       (B, KVH, G, Tq, D), (B, KVH, Tk, D),
+                       (B, KVH, Tk, Dv), (B, KVH, G, Tq, Dv)))
+    o, lse = tfa.flash_attention_plain(q, k, v, causal, window, True)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal, window)
+    got = _mma_bwd_replay(q, k, v, o, do, lse, causal, window, operand)
+    atol, rtol = MMA_BWD_TOL
+    return [float(((a.float() - b.float()).abs()
+                   / (atol + rtol * b.float().abs())).max())
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("B,KVH,G,Tq,Tk,D,Dv,causal,window", [
+    (1, 2, 3, 256, 256, 64, 64, True, None),      # SmolLM's head shape
+    (1, 2, 1, 100, 100, 80, 80, True, None),      # StableLM-3B
+    (1, 1, 4, 96, 96, 128, 128, True, None),      # Phi-3-medium
+    (1, 2, 1, 50, 130, 192, 128, True, None),     # MLA, Tq < Tk
+    (1, 1, 4, 256, 256, 256, 256, True, 128),     # Gemma3: G = 4, window
+    (2, 1, 4, 33, 33, 256, 256, True, 5),         # a window in a tile
+    (1, 2, 2, 40, 70, 64, 64, False, None),       # non-causal
+    (1, 1, 32, 33, 50, 128, 128, True, 3),        # G = 32, few keys a row
+    (1, 1, 32, 40, 40, 256, 256, True, 2),
+])
+def test_mma_bwd_rounding_within_the_card_tolerance(B, KVH, G, Tq, Tk, D,
+                                                    Dv, causal, window):
+    """The ``mma`` backward's rounding points, replayed in plain PyTorch
+    on bf16 inputs, stay within the card's bf16 tolerance of
+    ``flash_attention_bwd_plain`` (at most 0.7 of it: the rest is the
+    outputs' own bf16 rounding): the bound the kernel is held to on the
+    card can hold."""
+    worst = _bwd_case(B, KVH, G, Tq, Tk, D, Dv, causal, window, _split)
+    assert max(worst) <= 0.7, worst
+
+
+def test_one_bf16_rounding_of_p_and_ds_would_miss_the_bound():
+    """Why the split: p and ds rounded once to bf16 (2**-9 relative a
+    term) miss the bound where a key is seen by few rows with large p --
+    a window of 2 over G = 32 groups -- in all three outputs."""
+    worst = _bwd_case(1, 1, 32, 40, 40, 256, 256, True, 2, _bf)
+    assert min(worst) > 1.0, worst

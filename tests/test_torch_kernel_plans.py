@@ -21,6 +21,7 @@ mode's linear goes through ``ops.cfmm_matmul`` and still equals the JAX
 package's ``apply_linear``.
 """
 import itertools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from repro_torch.core.compiled_linear import _compile_leaf_2d, bitmap_pack
 from repro_torch.kernels import (block_sparse, cfmm_matmul, conv_depthwise,
                                  conv_implicit, flash_attention, ops, ref,
                                  sparse_matvec)
+from repro_torch.kernels._cuda import CSRC
 from repro_torch.kernels.bitmap import expand_bitmap_tile
 
 
@@ -44,16 +46,58 @@ from repro_torch.kernels.bitmap import expand_bitmap_tile
     (torch.bfloat16, 32, 16, "mma"),
     (torch.bfloat16, 128, 128, "mma"),
     (torch.bfloat16, 128, 64, "mma"),
-    (torch.bfloat16, 192, 128, "fma"),     # MLA-like: D past 128
-    (torch.bfloat16, 256, 256, "fma"),     # Gemma3-like
+    (torch.bfloat16, 192, 128, "mma"),     # MLA: Q's fragments from smem
+    (torch.bfloat16, 256, 256, "mma"),     # Gemma3
+    (torch.bfloat16, 80, 80, "mma"),       # StableLM-3B
     (torch.bfloat16, 24, 40, "fma"),       # not multiples of 16
     (torch.bfloat16, 64, 72, "fma"),
     (torch.bfloat16, 48, 48, "fma"),       # no instance for 48
+    (torch.bfloat16, 80, 64, "fma"),       # 80 only beside 80
+    (torch.bfloat16, 256, 128, "fma"),
     (torch.float32, 64, 64, "fma"),        # f32 stays off TF32
     (torch.float32, 16, 16, "fma"),
+    (torch.float32, 256, 256, "fma"),
 ])
 def test_flash_variant_rule(dtype, D, Dv, want):
     assert flash_attention.variant(dtype, D, Dv) == want
+
+
+@pytest.mark.parametrize("dtype,D,Dv,want", [
+    (torch.bfloat16, 64, 64, "mma"),       # SmolLM-360M
+    (torch.bfloat16, 80, 80, "mma"),       # StableLM-3B
+    (torch.bfloat16, 128, 128, "mma"),     # Phi-3-medium, OLMoE, Jamba
+    (torch.bfloat16, 192, 128, "mma"),     # DeepSeek-V2-Lite MLA
+    (torch.bfloat16, 256, 256, "mma"),     # Gemma3-1B
+    (torch.bfloat16, 32, 32, "fma"),       # no backward instance
+    (torch.bfloat16, 16, 32, "fma"),
+    (torch.bfloat16, 128, 64, "fma"),
+    (torch.bfloat16, 40, 24, "fma"),
+    (torch.float32, 64, 64, "fma"),        # f32 stays on the CUDA cores
+    (torch.float32, 256, 256, "fma"),
+    (torch.float32, 192, 128, "fma"),
+])
+def test_flash_bwd_variant_rule(dtype, D, Dv, want):
+    assert flash_attention.bwd_variant(dtype, D, Dv) == want
+
+
+def _cu_pairs(source, macro):
+    """The (D, Dv) pairs a ``#define <macro>(X) X(d, dv) ...`` table in
+    ``csrc/<source>.cu`` lists (the macro's continued lines)."""
+    text = (CSRC / f"{source}.cu").read_text()
+    m = re.search(rf"#define {macro}\(X\)((?:.*\\\n)*.*)", text)
+    assert m, macro
+    return {(int(d), int(dv))
+            for d, dv in re.findall(r"X\((\d+), (\d+)\)", m.group(1))}
+
+
+@pytest.mark.parametrize("source,macro,table", [
+    ("flash_attention", "FLASH_MMA_PAIRS", "MMA_PAIRS"),
+    ("flash_attention_bwd", "FLASH_BWD_MMA_PAIRS", "BWD_MMA_PAIRS"),
+])
+def test_flash_mma_pairs_match_the_cuda_tables(source, macro, table):
+    """The rule routes to ``mma`` exactly the pairs the CUDA source has an
+    instance for: a pair the source lacks would be refused at launch."""
+    assert _cu_pairs(source, macro) == set(getattr(flash_attention, table))
 
 
 # (M, K, N) -> (variant, splits, chunks_per) at the served shapes: the

@@ -902,6 +902,14 @@ def _flash_inputs(B, KVH, G, Tq, Tk, D, Dv, dtype, dev, seed=0):
     (1, 2, 3, 130, 130, 128, 64, True, 24),
     (1, 2, 2, 65, 65, 16, 32, False, None),
     (1, 2, 2, 33, 70, 24, 40, True, None),
+    # the mma instances at D = 80, 192 / 128 and 256: Tq, Tk no multiple
+    # of 64, Tq < Tk, a window narrower than a key tile
+    (1, 2, 1, 77, 77, 80, 80, True, None),
+    (1, 2, 3, 50, 130, 80, 80, True, 9),
+    (1, 2, 1, 33, 90, 192, 128, True, None),
+    (1, 1, 3, 70, 70, 192, 128, True, 7),
+    (1, 1, 4, 100, 200, 256, 256, True, 24),
+    (1, 2, 2, 65, 65, 256, 256, False, None),
 ])
 def test_flash_attention_matches_plain(dev, B, KVH, G, Tq, Tk, D, Dv,
                                        causal, window, dtype):
@@ -965,6 +973,20 @@ FLASH_BWD_SHAPES = [
     (1, 1, 32, 33, 50, 32, 32, True, 9),
     (1, 2, 2, 65, 65, 40, 24, False, None),
     (1, 2, 1, 1, 77, 64, 64, True, None),
+    # the mma pairs' edges: Tq, Tk no multiple of 64 (dq) or 64 / 32 keys
+    # (dk/dv), Tq < Tk, a window narrower than a tile, non-causal, and a
+    # window of 2 over G = 32 (few keys a row, large p: the case the
+    # split of p and ds into hi and lo operands is for)
+    (1, 3, 3, 41, 41, 64, 64, True, 6),
+    (1, 2, 3, 77, 77, 80, 80, True, None),
+    (1, 1, 2, 50, 130, 80, 80, True, 9),
+    (1, 2, 1, 33, 90, 128, 128, True, 5),
+    (2, 1, 4, 37, 37, 128, 128, False, None),
+    (1, 2, 1, 33, 90, 192, 128, True, None),
+    (1, 1, 3, 70, 70, 192, 128, True, 7),
+    (1, 1, 4, 100, 200, 256, 256, True, 24),
+    (1, 2, 2, 65, 65, 256, 256, False, None),
+    (1, 1, 32, 40, 40, 256, 256, True, 2),
 ]
 
 
@@ -1255,9 +1277,9 @@ def test_block_sparse_graph_replay_equals_eager(dev, dtype):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("KVH,G,D,window,want_variant", [
-    (32, 1, 80, None, "fma"),        # StableLM-3B
-    (1, 4, 256, 512, "fma"),         # Gemma3-1B local layers
-    (1, 4, 256, None, "fma"),        # Gemma3-1B global layers
+    (32, 1, 80, None, "mma"),        # StableLM-3B
+    (1, 4, 256, 512, "mma"),         # Gemma3-1B local layers
+    (1, 4, 256, None, "mma"),        # Gemma3-1B global layers
     (10, 4, 128, None, "mma"),       # Phi-3-medium-14B
     (8, 4, 128, None, "mma"),        # Jamba-v0.1's attention layers
 ])
