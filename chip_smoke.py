@@ -132,7 +132,7 @@
    run with the plain versions of every kernel of the path substituted,
    all within ``LM_LOGIT_BOUND`` (StableLM's, Phi-3's and DeepSeek's
    ``int8`` decode steps within their ``LM_DECODE_BOUNDS``, Gemma3's
-   compiled decode steps held by the witnesses alone, with the witnesses
+   ``sparse_cfmm`` ones there on its long-prompt slots, with the witnesses
    of where that spread comes from: ``decode_witnesses``, in an MoE stack
    each pair of runs on one routing); in every compiled mode
    also against a card run with only the linears' plain version (the
@@ -242,25 +242,6 @@ OUR_KERNELS = ("conv_mma_kernel", "sparse_mma_kernel", "conv_dw_kernel",
 
 class CheckFailed(AssertionError):
     pass
-
-
-def ptxas_entry(line: str) -> str:
-    """The kernel a ptxas ``Compiling entry function '<mangled>'`` line
-    names, with its integer template arguments: ``flash_mma_kernel<256,
-    256>``."""
-    m = re.search(r"'(_Z\w+)'", line)
-    if m is None:
-        return line.strip()
-    sym = m.group(1)
-    i = 3 if sym.startswith("_ZN") else 2
-    while (n := re.match(r"\d+", sym[i:])) is not None:  # the name's parts
-        start = i + n.end()
-        i = start + int(n.group())
-        if sym[start:i].endswith("_kernel"):
-            tail = sym[i:]
-            args = re.findall(r"Li(\d+)E", tail[:tail.find("Ev") + 1])
-            return sym[start:i] + (f"<{','.join(args)}>" if args else "")
-    return sym
 
 
 def check(cond, msg):
@@ -1926,22 +1907,25 @@ LM_LOGIT_BOUND = 0.5
 # cache exact; its 37-token slot's latent pad rows swapped in move the
 # step by 0.6094; one slot 0.207; a per-row scale 0.5557; SDPA 0.5962
 # from both runs; the lost tile 1.0742 / 2.7344 (H100 80GB HBM3, 700 W).
-# Gemma3-1B's compiled decode steps (None: no 4-slot bound) spread past
-# any bound that would part a fault from health.  Its first int8 step by
-# slot (prompts 37, 300, 777, 1000): kernel vs plain 2.83 / 2.31 / 0.18 /
-# 0.17 (logits of std 0.60); the plain step on the kernel's cache exact;
-# the plain run's pad rows swapped in move it by 2.53; one slot at a time
-# 0.078; one SDPA call as the attention 3.71 / 2.64 / 2.65 / 0.27 from the
-# plain run; a lost 64-key tile 3.48 / 2.45 / 2.48 / 1.51 (H100 80GB HBM3,
-# 700 W).  The `dense` path, with no activation scale to share, reads
-# 0.065.  So its 4-slot decode step is printed, not bounded: the
-# witnesses hold it (the step exact on the kernel's cache, one slot
-# within LM_LOGIT_BOUND), and the lost tile must fail the prefill bound
-# (1.65 there).
+# Gemma3-1B's `sparse_cfmm` decode step is bounded slot by slot: the
+# shared length counter moves its short-prompt slots past any bound that
+# would part a fault from health.  Its first step by slot (prompts 37,
+# 300, 777, 1000), kernel vs plain: 2.0659 / 0.3428 / 0.1641 / 0.1602
+# (logits of std 0.60); the plain step on the kernel's cache exact; the
+# plain run's pad rows swapped in move it by 2.102; one slot at a time
+# 0.1602; one SDPA call as the attention 3.5547 / 0.6758 / 2.1055 / 2.0234
+# from the plain run; a lost 64-key tile 2.543 / 2.7539 / 2.1367 / 3.1016
+# (H100 80GB HBM3, 700 W).  The 777- and 1000-token slots keep
+# LM_LOGIT_BOUND, which the lost tile fails there; the others are held by
+# the witnesses (the step exact on the kernel's cache, one slot within
+# LM_LOGIT_BOUND).  Its `int8` path spreads the same way in the witnesses
+# (2.8281 / 2.3125 / 0.1797 / 0.1729), but its tokens part in the prefill,
+# before a decode step is compared; the `dense` path reads 0.065.
 # Every other decode step, and every prefill, keeps LM_LOGIT_BOUND.
 LM_DECODE_BOUNDS = {"stablelm_3b/int8": 1.0, "phi3_medium_14b/int8": 1.0,
                     "deepseek_v2_lite_16b/int8": 1.0,
-                    "gemma3_1b/int8": None, "gemma3_1b/sparse_cfmm": None}
+                    "gemma3_1b/sparse_cfmm": {777: LM_LOGIT_BOUND,
+                                              1000: LM_LOGIT_BOUND}}
 # max |dlogit| of a bucketed dense prefill against the unpadded one on
 # the card: measured 0 to 0.0703 (H100 80GB HBM3, 700 W; SmolLM, Gemma3,
 # StableLM, Phi-3 at 37 -> 64 and 777 -> 1024 tokens), held with 2x
@@ -2166,8 +2150,9 @@ def compare_runs(calls_a, calls_b):
     (slots share each linear's activation scale).  Returns (max |dlogit|
     per prefill, max |dlogit| over the decode steps compared, tokens
     compared, the margins of run a's top token over run b's where they
-    differ)."""
+    differ, and {slot: max |dlogit| over its decode steps compared})."""
     pre, dec, n_tok, margins, parted = [], 0.0, 0, [], False
+    by_slot = collections.defaultdict(float)
     for (kind, rows, la, _, _), (_, _, lb, _, _) in zip(calls_a, calls_b):
         if kind == "decode" and parted:
             continue
@@ -2177,12 +2162,26 @@ def compare_runs(calls_a, calls_b):
                 pre.append(d)
             else:
                 dec = max(dec, d)
+                by_slot[r] = max(by_slot[r], d)
             ta, tb = int(la[r].argmax()), int(lb[r].argmax())
             if ta != tb:
                 margins.append(float(la[r][ta] - la[r][tb]))
                 parted = True
             n_tok += 1
-    return pre, dec, n_tok, margins
+    return pre, dec, n_tok, margins, dict(by_slot)
+
+
+def decode_over(bound, by_slot, prompts):
+    """Whether decode readings ``by_slot`` ({slot: max |dlogit|}; slot i
+    serves ``prompts[i]``) pass an ``LM_DECODE_BOUNDS`` value: a number
+    bounds every slot, a dict {prompt length: bound} only those prompts'
+    slots."""
+    if isinstance(bound, dict):
+        check(len(prompts) <= LM_SLOTS, "a bound by prompt needs a slot "
+              "for each prompt")
+        return any(by_slot.get(i, 0.0) > bound[L]
+                   for i, L in enumerate(prompts) if L in bound)
+    return any(d > bound for d in by_slot.values())
 
 
 def f64_gemm(key: str) -> bool:
@@ -2602,8 +2601,8 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu,
             rec_plain, plain_reqs = substituted_run(
                 make, requests, kernels, plain_versions(substituted),
                 substituted, label, snapshot=witnessed)
-        pre_d, dec_d, n_tok, margins = compare_runs(rec_plain.calls,
-                                                    rec.calls)
+        pre_d, dec_d, n_tok, margins, dec_slots = compare_runs(
+            rec_plain.calls, rec.calls)
         same = sum(a == b for r, pr in zip(reqs, plain_reqs)
                    for a, b in zip(r.tokens_out, pr.tokens_out))
         streams_equal = all(r.tokens_out == pr.tokens_out
@@ -2618,15 +2617,15 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu,
               f"decode {dec_d:.4g} (logit std {std:.3f}); margins where "
               f"parted {margins}", flush=True)
         dec_bound = LM_DECODE_BOUNDS.get(label, LM_LOGIT_BOUND)
-        held = dict(prefill=pre_d, decode=dec_d, margins=margins,
-                    streams_equal=streams_equal)
+        held = dict(prefill=pre_d, decode=dec_d, decode_slots=dec_slots,
+                    margins=margins, streams_equal=streams_equal)
         routing = rec_replay = None
         if cfg.moe is not None:
             routing, rec_replay = moe_routing(
                 make, requests, kernels, cfg, label, rec, rec_plain, route_k,
                 route_p, n_fwd, plain_reqs, snapshot=witnessed)
             if (max(pre_d) > LM_LOGIT_BOUND
-                    or (dec_bound is not None and dec_d > dec_bound)
+                    or decode_over(dec_bound, dec_slots, prompts)
                     or any(m > 2 * LM_LOGIT_BOUND for m in margins)):
                 # a routing pick turned by a rounding: the witness, the
                 # kernel run on the plain run's picks, must hold the bounds
@@ -2635,10 +2634,10 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu,
                       f"held on the plain run's routing replayed "
                       f"(witness)", flush=True)
         check(max(held["prefill"]) <= LM_LOGIT_BOUND
-              and (dec_bound is None or held["decode"] <= dec_bound),
+              and not decode_over(dec_bound, held["decode_slots"], prompts),
               f"{label}: kernel run off the plain run by "
-              f"{max(held['prefill']):.4g} (prefill), {held['decode']:.4g} "
-              f"(decode)")
+              f"{max(held['prefill']):.4g} (prefill), decode by slot "
+              f"{held['decode_slots']} (bound {dec_bound})")
         check(all(m <= 2 * LM_LOGIT_BOUND for m in held["margins"]),
               f"{label}: a token parted at margin "
               f"{max(held['margins'], default=0)}")
@@ -2748,7 +2747,7 @@ def moe_routing(make, requests, kernels, cfg, label, rec, rec_plain,
     check(all(torch.equal(a, b) for a, b in zip(replay.picks,
                                                  route_p.picks)),
           f"{label}: the replayed run made other picks")
-    r_pre, r_dec, r_tok, r_margins = compare_runs(rec_plain.calls,
+    r_pre, r_dec, r_tok, r_margins, r_slots = compare_runs(rec_plain.calls,
                                                   rec_replay.calls)
     r_streams = all(r.tokens_out == pr.tokens_out
                     for r, pr in zip(replay_reqs, plain_reqs))
@@ -2763,8 +2762,9 @@ def moe_routing(make, requests, kernels, cfg, label, rec, rec_plain,
           f"{r_margins}, streams_equal={r_streams}", flush=True)
     return dict(picks=n_picks, equal_share=share,
                 kept_min=min(kept), kept_max=max(kept),
-                replayed=dict(prefill=r_pre, decode=r_dec, tokens=r_tok,
-                              margins=r_margins, streams_equal=r_streams)
+                replayed=dict(prefill=r_pre, decode=r_dec, decode_slots=r_slots,
+                              tokens=r_tok, margins=r_margins,
+                              streams_equal=r_streams)
                 ), rec_replay
 
 
@@ -2796,7 +2796,7 @@ def compare_plain_linear(make, requests, kernels, linear, label, rec, reqs,
         with plain_versions([linear]):
             prof = profile_lm(make, requests,
                               f"{label} with the plain {linear}")
-    pre_d, dec_d, n_tok, _ = compare_runs(rec_plain.calls, rec.calls)
+    pre_d, dec_d, n_tok, _, _ = compare_runs(rec_plain.calls, rec.calls)
     streams_equal = all(r.tokens_out == pr.tokens_out
                         for r, pr in zip(reqs, plain_reqs))
     print(f"[lm] {label}: vs the plain {linear} on the card: "
@@ -2882,7 +2882,7 @@ def decode_witnesses(make, requests, kernels, substituted, cfg, prompts,
                                slots=slots)
         return p, k
     one_p, one_k = pair(slots=1)
-    one_pre, one_dec, _, _ = compare_runs(one_p.calls, one_k.calls)
+    one_pre, one_dec, _, _, _ = compare_runs(one_p.calls, one_k.calls)
     with per_row_scales():
         row_p, row_k = pair()
     sdpa, _ = substituted_run(make, requests, kernels,
@@ -2891,7 +2891,7 @@ def decode_witnesses(make, requests, kernels, substituted, cfg, prompts,
     lost, _ = substituted_run(make, requests, kernels,
                               _entered(subs(attention=lost_tile_attention),
                                        routed(route)), substituted, label)
-    lost_pre, _, _, _ = compare_runs(plain.calls, lost.calls)
+    lost_pre, _, _, _, _ = compare_runs(plain.calls, lost.calls)
     out = dict(
         kernel_vs_plain=healthy, teacher_forced=teacher,
         pad_rows_swapped=swapped,
@@ -2918,8 +2918,8 @@ def decode_witnesses(make, requests, kernels, substituted, cfg, prompts,
     check(max(one_pre + [one_dec]) <= LM_LOGIT_BOUND,
           f"{label}: one slot, kernel off plain by "
           f"{max(one_pre + [one_dec]):.4g}")
-    check((bound is None or max(out["lost_tile"]["decode"]) > bound)
-          and max(lost_pre) > LM_LOGIT_BOUND,
+    check(decode_over(bound, dict(enumerate(out["lost_tile"]["decode"])),
+                      prompts) and max(lost_pre) > LM_LOGIT_BOUND,
           f"{label}: the planted lost tile passes the bounds: {out}")
     return out
 
@@ -3323,13 +3323,32 @@ def main() -> int:
     logs = _cuda.build_all(kernels.values())
     print(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f}s",
           flush=True)
+    # ptxas -v by kernel instance (its mangled name: flash_mma_kernel<256,
+    # 256> is ..flash_mma_kernelILi256ELi256EE..); every tensor-core flash
+    # instance, forward and backward, must spill nothing
+    spills = collections.Counter()
     for src, log in logs.items():
         name = ""
         for line in log.splitlines():
-            if "Compiling entry function" in line:
-                name = ptxas_entry(line)
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                name = m.group(1)
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {src}: {name}: {line.strip()}", flush=True)
+            kind = re.search(r"\d(flash_mma|flash_bwd_dq_mma|flash_bwd_dkdv_mma)"
+                             r"_kernelI", name)
+            if kind and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                        r"bytes spill loads", line)):
+                spills[kind.group(1)] += 1
+                check(m.group(1) == m.group(2) == "0",
+                      f"ptxas: {name} spills ({line.strip()})")
+    n_fwd, n_bwd = len(flash_attention.MMA_PAIRS), len(
+        flash_attention.BWD_MMA_PAIRS)
+    check(spills == {"flash_mma": n_fwd, "flash_bwd_dq_mma": n_bwd,
+                     "flash_bwd_dkdv_mma": n_bwd},
+          f"ptxas: spill lines of {dict(spills)} tensor-core flash "
+          f"instances, want {n_fwd} forward and {n_bwd} of each backward")
+    print(f"[ptxas] 0 spill bytes in each of {n_fwd} flash_mma_kernel and "
+          f"2 x {n_bwd} backward tensor-core instances", flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)

@@ -57,16 +57,15 @@
 // them from the shared Q tile by ldmatrix at every k-step (one more x4
 // load per four K loads).  ptxas reports no spills for any instance.
 //   Shared memory: the Q tile and two K/V stages, (64 (D + 8) + 2 BK
-// (D + Dv + 16)) * 2 bytes.  D <= 128 takes BK = 64 keys (at most 104 KB,
-// two blocks an SM).  D > 128 takes BK = FLASH_WIDE_BK: at D = 256, 64
-// keys need 169 KB (one block an SM), 32 keys 101 KB (two blocks).
-// tools/flash_key_tile.py builds both and times them at the wide served
-// shapes (PERF.md, row 6): 64 keys are faster summed over its six shapes
-// (0.2560 ms against 0.2672 on an H100 at 700 W) and at five of them (a
-// 64-key tile takes half the trips, and barriers, of the key loop).  32
-// keys win only at Gemma3's training forward (batch 8: 256 blocks at D =
-// 256, two waves at one block an SM, one wave at two; 0.0465 ms against
-// 0.0564).  So 64 is the default.
+// (D + Dv + 16)) * 2 bytes, with BK = 64 keys: at most 104 KB up to D =
+// 128 (two blocks an SM), 169 KB at D = 256 (one block an SM).  32-key
+// tiles would fit two blocks an SM at D = 256 (101 KB); timed against 64
+// at the six wide served shapes on an H100 80GB HBM3 at 700 W (PERF.md,
+// row 6), 64 keys are faster summed (0.2569 ms against 0.2680) and at five
+// of the six: a 64-key tile takes half the trips, and barriers, of the key
+// loop.  32 keys won only at Gemma3's training forward (batch 8: 256
+// blocks at D = 256, two waves at one block an SM, one at two; 0.0465 ms
+// against 0.0568), a shape whose step is bound by the host.
 //
 // flash_kernel (f32, and bf16 shapes outside FLASH_MMA_PAIRS: D or Dv not
 // a multiple of 16, or pairs with no instance).  The CUDA-core kernel: one
@@ -88,21 +87,13 @@ using namespace flash;
 constexpr int TC_WARPS = 4;
 constexpr int TC_ROWS = 16 * TC_WARPS;    // query rows per block
 
-// keys per K/V tile past D = 128 (32 or 64; see the header)
-#ifndef FLASH_WIDE_BK
-#define FLASH_WIDE_BK 64
-#endif
-static_assert(FLASH_WIDE_BK == 32 || FLASH_WIDE_BK == 64, "32 or 64 keys");
-
-__host__ __device__ constexpr int tc_bk(int D) {
-  return D > 128 ? FLASH_WIDE_BK : 64;
-}
+constexpr int TC_BK = 64;                // keys per K/V tile (see the header)
 
 // dynamic shared memory: Q tile, then two stages of (K tile, V tile),
 // rows padded by 8 elements (16 bytes)
 __host__ __device__ constexpr size_t tc_smem_bytes(int D, int Dv) {
   return ((size_t)TC_ROWS * (D + 8) +
-          2 * (size_t)tc_bk(D) * ((D + 8) + (Dv + 8))) * 2;
+          2 * (size_t)TC_BK * ((D + 8) + (Dv + 8))) * 2;
 }
 
 // one instance per (D, Dv): every loop over columns has a fixed trip count,
@@ -119,7 +110,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  int G, int Tq, int Tk, int bq, int causal, int window,
                  float scale_log2) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  constexpr int BK = tc_bk(D);            // keys per tile
+  constexpr int BK = TC_BK;               // keys per tile
   constexpr int NT = BK / 8;              // n-tiles of 8 keys
   constexpr bool QREG = D <= 128;         // Q's fragments in registers
   constexpr int ds = D + 8, dvs = Dv + 8; // padded row strides (elements)

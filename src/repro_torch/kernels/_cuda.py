@@ -78,9 +78,11 @@ class CudaKernel:
 
     def finish_build(self, started) -> str:
         """Wait for ``start_build``'s nvcc; install the library; return
-        the compiler's output (ptxas register/shared-memory report)."""
+        the compiler's output (ptxas register/shared-memory report), or
+        the one saved beside a library already built."""
         if started is None:
-            return ""
+            log = self.lib_path.with_suffix(".log")
+            return log.read_text() if log.exists() else ""
         proc, tmp, log = started
         out, _ = proc.communicate()
         log.write_text(out)
