@@ -23,8 +23,9 @@
    rectangular Tq < Tk, a non-causal Tk = 1500, a Gemma3-like window and
    Dv != D, and in bf16 at the prefill shapes of StableLM-3B (D = 80),
    Gemma3-1B (D = 256, window 512 and none), Phi-3-medium and
-   OLMoE-1B-7B (D = 128) and DeepSeek-V2-Lite's MLA (D = 192, Dv = 128)
-   at T = 1024, within ``FLASH_TOL``; the flash-attention backward
+   OLMoE-1B-7B (D = 128), DeepSeek-V2-Lite's MLA (D = 192, Dv = 128) and
+   Qwen2-VL-7B (D = 128, G = 7) at T = 1024, within ``FLASH_TOL``; the
+   flash-attention backward
    (``flash_attention_bwd``, the training path's gradient) in bf16 and f32
    at ``FLASH_BWD_SHAPES`` (SmolLM-360M's and Gemma3-1B's training shapes,
    seq 512 x batch 8, and the served attention shapes above) from the
@@ -33,7 +34,8 @@
    backend named) between CUDA events and as the profiler's kernel
    durations; ``cfmm_matmul`` also at the SSM
    paths' linears (Mamba's x_proj and dt_proj, RWKV's low-rank mix and
-   decay projections, Jamba's experts, both 65536-token heads); prints the
+   decay projections, Jamba's experts, both 65536-token heads) and at
+   Qwen2-VL-7B's (k/v, gate/up, down, its 152064-token head); prints the
    variant each shape runs (flash and its backward: the tensor-core
    ``mma`` or the CUDA-core ``fma`` kernels; ``sparse_matvec``: ``rows``
    or ``split`` and its split over K); times each (median of CUDA-event
@@ -110,14 +112,17 @@
    prompt tokens, 16 new tokens each), Gemma3-1B in ``dense``, ``int8``
    and ``sparse_cfmm``, StableLM-3B and Phi-3-medium-14B in ``dense`` and
    ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), the MoE
-   OLMoE-1B-7B in ``dense``, ``int8`` and ``sparse_cfmm`` and the MLA +
+   OLMoE-1B-7B in ``dense`` at its 16 layers and in ``int8`` and
+   ``sparse_cfmm`` at 8 of them, and the MLA +
    MoE DeepSeek-V2-Lite-16B (published widths; its dense first layer,
    64 routed experts top-6 beside 2 shared) in ``dense`` at its published
    depth of 27 layers and in ``int8`` at 14 (2 requests of 37 and 777
    tokens, 2 new tokens each: one decode step), the recurrent RWKV6-7B (published widths and depth) on
    the dense configs' traffic and Jamba-v0.1 (published widths, one
    period of 8 of its 32 layers: Mamba, attention, 16 experts top-2) on
-   OLMoE's, in ``dense`` and ``int8``, 4 slots.
+   OLMoE's, in ``dense`` and ``int8``, and Qwen2-VL-7B (M-RoPE, published
+   widths and depth: 28 layers, 28 heads over 4 KV heads) on the dense
+   configs' traffic in ``dense`` and ``int8``, 4 slots.
    Checks one ``flash_attention`` launch per attention layer and
    request, and per forward one ``cfmm_matmul`` (``int8``) or
    ``sparse_matvec`` (``sparse_cfmm``) per linear (``lm_linears``: 7 per
@@ -151,6 +156,18 @@
    routing picks equal between the kernel run and the plain run, and
    the witness of a spread past the bounds: the kernel run on the plain
    run's picks replayed (``RouteRecorder``), held to the bounds;
+   Qwen2-VL-7B adds two checks (``LM_EXTRA_CHECKS``): (a) in ``dense``, a
+   1000-token prompt in its layout (10 text tokens, a 1 x 24 x 32 image at
+   3-D positions, 222 text tokens) prefilled with its ``positions`` and
+   decoded 4 steps, within ``LM_LOGIT_BOUND`` of the plain flash, its 10
+   leading tokens' logits bit-equal to text positions' and the rest moved
+   past twice the bound (``mrope_check``); (b) in ``int8``, the four prompts
+   served into an int8 KV cache one slot each, its codes and scales equal
+   to the plain-linear run's to the bit, its prefills (and each request
+   served alone) within the bound of the plain versions', its decode
+   steps within ``LM_KV_INT8_BOUND`` (witnessed: the bf16 cache's
+   spread, per-row scales, a lost tile), read beside the bf16 cache's,
+   its bytes against bf16 (``int8_kv_check``);
    reports prefill and decode tokens/s, one profiled run's idle share
    (device time summed from the profiler's raw events), the ``int8``
    compile's peak and the peak device memory of each path;
@@ -365,7 +382,13 @@ CFMM_SHAPES = [("head", 2, 2048, 1000), ("head", 2, 1280, 1000),
                ("Phi-3 down", 1024, 17920, 5120),
                ("Phi-3 gate/up decode", 4, 5120, 17920),
                ("Phi-3 head prefill", 1, 5120, 100352),
-               ("Phi-3 head decode", 4, 5120, 100352)] + [
+               ("Phi-3 head decode", 4, 5120, 100352),
+               # Qwen2-VL-7B: d 3584, d_ff 18944, 4 KV heads of 128, its
+               # 152064-token head
+               ("Qwen2-VL k/v", 1024, 3584, 512),
+               ("Qwen2-VL gate/up", 1024, 3584, 18944),
+               ("Qwen2-VL down", 1024, 18944, 3584),
+               ("Qwen2-VL head decode", 4, 3584, 152064)] + [
     # OLMoE-1B-7B: each expert's linears on its queue of cap rows (cap
     # 160, 80, 16 for the 1024-, 512- and 64-token buckets, 8 in decode)
     # and the attention linears at 1024 tokens
@@ -838,6 +861,10 @@ LM_FLASH_SHAPES = [
     # Jamba's one attention layer per period: 32 heads over 8 KV heads,
     # prefilled at exact length (777 tokens)
     ("Jamba-v0.1 prefill T=777", 1, 8, 4, 777, 777, 128, 128, True, None),
+    # Qwen2-VL-7B: 28 heads over 4 KV heads, G = 7 (9 positions per
+    # 64-row tile and one pad row)
+    ("Qwen2-VL-7B prefill T=1024", 1, 4, 7, 1024, 1024, 128, 128, True,
+     None),
 ]
 # kernel against plain version on the card (as tests/test_torch_kernels_
 # cuda.py): the sums run in other orders and the kernel's p is relative
@@ -1820,9 +1847,9 @@ LM_NEW, LM_SLOTS = 16, 4
 # 1024, so Gemma3's window of 512 binds), 8 new tokens each
 DENSE_LM_PROMPTS = (37, 300, 777, 1000)
 DENSE_LM_NEW = 8
-# OLMoE-1B-7B: every forward runs 3137 linears (3 x 64 experts x 16
-# layers, the attention and the head), about 1 s of host per forward in
-# the compiled modes; 2 requests (buckets 64 and 1024), 2 new tokens each
+# OLMoE-1B-7B: every forward runs 3137 linears at 16 layers (3 x 64
+# experts and the attention's 4 per layer, and the head), about 1 s of
+# host per forward in the compiled modes; 2 requests (buckets 64 and 1024), 2 new tokens each
 # (one decode step); DeepSeek-V2-Lite-16B takes the same traffic
 OLMOE_PROMPTS = (37, 777)
 OLMOE_NEW = 2
@@ -1838,8 +1865,11 @@ LM_PATHS = [
     ("phi3_medium_14b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
     # the MoE FFN: f32 weights are 25.8 GiB, too large for a CPU forward
     # in the time
-    ("olmoe_1b_7b", ("dense", "int8", "sparse_cfmm"), OLMOE_PROMPTS,
-     OLMOE_NEW, 0),
+    # `dense` at its published 16 layers, the compiled modes at 8 (1569
+    # linears a forward): their host-bound checks took 47.2 + 49.9 s of a
+    # 1005.4 s run at 16 once Qwen2-VL-7B's path joined
+    ("olmoe_1b_7b", ("dense",), OLMOE_PROMPTS, OLMOE_NEW, 0),
+    ("olmoe_1b_7b", ("int8", "sparse_cfmm"), OLMOE_PROMPTS, OLMOE_NEW, 0, 8),
     # MLA on the MoE FFN: f32 weights are 58.5 GiB, the int8 tree 14.6 GiB.
     # `dense` at the published depth (27 layers); `int8` at 14 (the dense
     # first layer and 13 MoE layers): its checks, host-bound (~276k
@@ -1853,6 +1883,9 @@ LM_PATHS = [
     # (every kind of block it has) is 49.5 GiB, with the int8 tree beside
     # it about 62 GiB (10 layers would need about 77 GiB)
     ("jamba_v01_52b", ("dense", "int8"), OLMOE_PROMPTS, OLMOE_NEW, 0, 8),
+    # M-RoPE: f32 weights 28.4 GiB, at its published depth; `dense` also
+    # runs the 3-D position check, `int8` the int8 KV cache check
+    ("qwen2_vl_7b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
 ]
 # the kernel each compiled mode's linears launch
 LM_LINEAR = {"int8": "cfmm_matmul", "sparse_cfmm": "sparse_matvec"}
@@ -1867,6 +1900,7 @@ PUBLISHED = {
     "deepseek_v2_lite_16b": (27, 2048, 16, 16, 192, 10944, 102400),
     "rwkv6_7b": (32, 4096, 64, 64, 64, 14336, 65536),
     "jamba_v01_52b": (32, 4096, 32, 8, 128, 14336, 65536),
+    "qwen2_vl_7b": (28, 3584, 28, 4, 128, 18944, 152064),
 }
 # (n_experts, top_k, d_ff_expert, n_shared) of the MoE configs,
 # (kv_lora, qk_nope, qk_rope, v_dim) of the MLA ones, and the SSM
@@ -1878,6 +1912,8 @@ PUBLISHED_MOE = {"olmoe_1b_7b": (64, 8, 1024, 0),
 PUBLISHED_MLA = {"deepseek_v2_lite_16b": (512, 128, 64, 128)}
 PUBLISHED_SSM = {"jamba_v01_52b": ("mamba", 8192, 16, 4, 256),
                  "rwkv6_7b": ("rwkv6", 64, 64)}
+# (mrope_sections, rope_theta) of the M-RoPE configs, as published
+PUBLISHED_MROPE = {"qwen2_vl_7b": ((16, 24, 24), 1e6)}
 # max |dlogit| allowed between two forwards of the same tokens: the card
 # against the CPU's plain versions, and the kernels against their plain
 # versions substituted on the card.  Both sides compute the same function
@@ -2429,6 +2465,283 @@ def state_carry_witness(tree, cfg, reqs, label, per_row=False):
                 unchecked_pad_reference=unchecked)
 
 
+# ---------------------------------------------------------------------------
+# M-RoPE and the int8 KV cache (Qwen2-VL-7B)
+# ---------------------------------------------------------------------------
+
+# check (a)'s prompt in Qwen2-VL's layout: 10 text tokens at 0-9 on every
+# stream, an image of 1 x 24 x 32 patches at (10, 10 + h, 10 + w), then
+# 222 text tokens from 10 + 32 on every stream: 1000 tokens
+MROPE_TEXT, MROPE_GRID, MROPE_AFTER = 10, (1, 24, 32), 222
+MROPE_STEPS = 4
+# how far the 3-D positions must move the image tokens' and the later
+# text tokens' logits off the text positions' (max |dlogit| over their
+# rows).  A path that dropped the streams reads 0 to the bit (the same
+# function of the same inputs); the kernel against the plain flash reads
+# 0.0625 on this prompt.  Measured 1.996 (image) and 2.068 (later text)
+# on an H100 80GB HBM3 at 700 W, logits of std 0.88: random weights mix
+# little across positions.  Held above twice ``LM_LOGIT_BOUND``.
+MROPE_MOVED_MIN = 2 * LM_LOGIT_BOUND
+
+
+def mrope_prompt_positions(steps=MROPE_STEPS):
+    """(3, 1, 1000 + steps) int32: check (a)'s prompt and the decode
+    steps after it (every stream equal from the image's largest position
+    + 1 on)."""
+    gt, gh, gw = MROPE_GRID
+    t, h, w = torch.meshgrid(torch.arange(gt), torch.arange(gh),
+                             torch.arange(gw), indexing="ij")
+    image = torch.stack([t.flatten(), h.flatten(), w.flatten()]) + MROPE_TEXT
+    start = int(image.max()) + 1
+    text = torch.arange(MROPE_TEXT)
+    after = torch.arange(start, start + MROPE_AFTER + steps)
+    pos = torch.cat([text.expand(3, -1), image, after.expand(3, -1)], dim=1)
+    return pos[:, None].to(torch.int32)
+
+
+def mrope_check(kernels, tree, cfg, label):
+    """Check (a), ``dense`` at full width: 3-D positions reach the served
+    rotation.  One 1000-token prompt in Qwen2-VL's layout
+    (``mrope_prompt_positions``) prefilled through ``lm.forward_prefill``
+    with its ``positions``, then ``MROPE_STEPS`` greedy decode steps; the
+    same calls with the plain flash attention on the kernel run's tokens,
+    each within ``LM_LOGIT_BOUND``.  Two witnesses from ``forward_train``'s
+    logits at every position, 3-D positions against text ones: the 10
+    leading text tokens bit-equal (causal attention; the dense GEMMs are
+    row-independent), the image tokens and the text after them moved by
+    more than ``MROPE_MOVED_MIN``."""
+    from repro_torch import nn
+    from repro_torch.models import lm
+    pos = mrope_prompt_positions().cuda()
+    T = pos.shape[-1] - MROPE_STEPS
+    rng = np.random.RandomState(3)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab, (1, T))).cuda()
+
+    def run(forced=None):
+        cache = nn.unbox(lm.cache_init(cfg, 1, LM_MAX_SEQ, device="cuda"))
+        logits, cache = lm.forward_prefill(
+            tree, {"tokens": toks, "positions": pos[:, :, :T]}, cfg, cache)
+        out, picked = [logits[0, -1].float()], []
+        for i in range(MROPE_STEPS):
+            nxt = int(out[-1].argmax()) if forced is None else forced[i]
+            picked.append(nxt)
+            batch = {"token": torch.tensor([[nxt]], device="cuda"),
+                     "positions": pos[:, :, T + i:T + i + 1]}
+            logits, cache = lm.forward_decode(tree, batch, cfg, cache)
+            out.append(logits[0, -1].float())
+        return out, picked
+
+    for kern in kernels.values():
+        kern.launches = 0
+    got, picked = run()
+    n_attn = sum(sig["kind"] == "attn" for sig in cfg.layer_sigs())
+    check(kernels["flash_attention"].launches == n_attn,
+          f"{label}: {kernels['flash_attention'].launches} flash launches "
+          f"in the 3-D prefill, want {n_attn}")
+    with plain_versions(["flash_attention"]):
+        want, _ = run(picked)
+    d = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+
+    # every position's logits, 3-D positions against text ones
+    flat = dataclasses.replace(cfg, remat=False)
+    with torch.no_grad():
+        by_3d = lm.forward_train(tree, {"tokens": toks,
+                                        "positions": pos[:, :, :T]}, flat)[0]
+        by_text = lm.forward_train(tree, {"tokens": toks}, flat)[0]
+    img_end = MROPE_TEXT + MROPE_GRID[0] * MROPE_GRID[1] * MROPE_GRID[2]
+    lead_equal = torch.equal(by_3d[0, :MROPE_TEXT], by_text[0, :MROPE_TEXT])
+    moved = [float((by_3d[0, a:b].float() - by_text[0, a:b].float())
+                   .abs().max())
+             for a, b in ((MROPE_TEXT, img_end), (img_end, T))]
+    flipped = float((by_3d[0, MROPE_TEXT:].argmax(-1)
+                     != by_text[0, MROPE_TEXT:].argmax(-1)).float().mean())
+    last = float((by_3d[0, -1].float() - got[0]).abs().max())
+    del by_3d, by_text
+    print(f"[lm] {label}: 3-D positions (10 text, a 1x24x32 image at "
+          f"(10, 10+h, 10+w), 222 text from 42; {T} tokens, "
+          f"{MROPE_STEPS} decode steps): kernel vs plain flash max|dlogit| "
+          f"prefill {d[0]:.4g}, steps {[round(x, 4) for x in d[1:]]}; "
+          f"witnesses: 10 leading text tokens bit-equal to text positions "
+          f"{lead_equal}; image tokens moved {moved[0]:.4g}, later text "
+          f"{moved[1]:.4g} (must exceed {MROPE_MOVED_MIN}), top-1 changed "
+          f"on {flipped:.3f} of those rows; "
+          f"forward_train's last row vs the prefill's {last:.4g}",
+          flush=True)
+    check(finite, f"{label}: non-finite logits on 3-D positions")
+    check(max(d) <= LM_LOGIT_BOUND,
+          f"{label}: 3-D positions, kernel off plain by {d}")
+    check(lead_equal, f"{label}: the leading text tokens' logits moved "
+          "with the image's positions")
+    check(min(moved) > MROPE_MOVED_MIN,
+          f"{label}: the 3-D positions barely move the logits: {moved}")
+    return dict(prefill_max_dlogit=d[0], decode_max_dlogit=d[1:],
+                leading_text_bit_equal=lead_equal,
+                image_moved=moved[0], later_text_moved=moved[1],
+                top1_changed_share=flipped,
+                train_last_row_vs_prefill=last)
+
+
+def kv_cache_run(tree, cfg, reqs, kv_dtype, new, forced=None):
+    """Serve ``reqs`` through ``lm.forward_prefill`` / ``forward_decode``
+    into a cache of ``kv_dtype``, one slot each: each prompt prefilled
+    alone at its exact length and merged into its slot (the engine's
+    ``_merge_slot_cache``), then ``new - 1`` decode steps over the slots,
+    greedy or on the ``forced`` tokens.  Returns (per call the logits of
+    its rows, f32 on the card; the tokens; the cache)."""
+    from repro_torch import nn
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import _merge_slot_cache
+    cache = nn.unbox(lm.cache_init(cfg, len(reqs), LM_MAX_SEQ,
+                                   kv_dtype=kv_dtype, device="cuda"))
+    calls, tokens = [], []
+    for slot, r in enumerate(reqs):
+        one = nn.unbox(lm.cache_init(cfg, 1, LM_MAX_SEQ, kv_dtype=kv_dtype,
+                                     device="cuda"))
+        toks = torch.tensor([r.prompt], dtype=torch.long, device="cuda")
+        logits, one = lm.forward_prefill(tree, {"tokens": toks}, cfg, one)
+        _merge_slot_cache(cache, one, slot)
+        calls.append(logits[:, -1].float())
+        tokens.append(logits[0, -1].argmax()[None])
+    tokens = [torch.cat(tokens)]
+    for i in range(new - 1):
+        last = tokens[-1] if forced is None else forced[i]
+        logits, cache = lm.forward_decode(tree, {"token": last[:, None]},
+                                          cfg, cache)
+        calls.append(logits[:, -1].float())
+        tokens.append(logits[:, -1].argmax(-1))
+    return calls, tokens, cache
+
+
+# check (b)'s bound on the decode steps of its 4-slot run, kernel against
+# plain (its prefills, and each request served alone, keep
+# LM_LOGIT_BOUND).  Measured (H100 80GB HBM3, 700 W; Qwen2-VL-7B `int8`,
+# logits of std 0.88): the steps read 0.5957-0.752 with the int8 cache
+# and 0.6113-0.7354 with the bf16 cache on the same protocol, so the
+# int8 cache adds no spread; per-row activation scales in both runs leave
+# 0.3667-0.4629, each request alone 0.2031-0.313 over its calls: the
+# slots' shared per-tensor activation scale carries it, as in the
+# StableLM and Phi-3 engine steps (LM_DECODE_BOUNDS).  A planted lost KV
+# tile reads 2.4844-3.0312 on the steps.  Held to 1.0: 1.33x the largest
+# healthy reading, below half the planted one.
+LM_KV_INT8_BOUND = 1.0
+
+
+def int8_kv_check(kernels, tree, cfg, reqs, label):
+    """Check (b), ``int8`` weights at full width: the int8 KV cache.  The
+    ``DENSE_LM_PROMPTS`` prefilled into an int8 cache one slot each and
+    ``DENSE_LM_NEW`` tokens served (``kv_cache_run``), the kernel run
+    greedy and the other runs on its tokens: the bf16 cache; the int8
+    cache with every kernel's plain version; with only the linears'
+    plain version (the float64 product).  Held: the kernel run's prefill
+    logits equal the bf16 cache's (a prefill attends its own unquantized
+    keys); its codes and scales equal the plain-linear run's to the bit
+    (the same f32 inputs give the same codes), and the first layer's
+    equal the all-plain run's (its inputs are the same there); its
+    prefills within ``LM_LOGIT_BOUND`` of the all-plain run's and its
+    decode steps within ``LM_KV_INT8_BOUND``, each request served alone
+    within ``LM_LOGIT_BOUND``; a planted lost KV tile outside the
+    bound.  Reported beside: the step logits against
+    the bf16 cache, the bf16 cache's own kernel-vs-plain spread, per-row
+    activation scales, and the cache's bytes against bf16."""
+    n_attn = sum(sig["kind"] == "attn" for sig in cfg.layer_sigs())
+    both = ["flash_attention", "cfmm_matmul"]
+    for kern in kernels.values():
+        kern.launches = 0
+    k_calls, picked, k_cache = kv_cache_run(tree, cfg, reqs, torch.int8,
+                                            DENSE_LM_NEW)
+    torch.cuda.synchronize()
+    n_pre, n_dec = len(reqs), DENSE_LM_NEW - 1
+    want = {"flash_attention": n_attn * n_pre,
+            "cfmm_matmul": lm_linears(cfg) * (n_pre + n_dec)}
+    for name, kern in kernels.items():
+        check(kern.launches == want.get(name, 0),
+              f"{label}: int8 KV run launched {kern.launches} {name}, want "
+              f"{want.get(name, 0)}")
+    forced = picked[:-1]
+
+    def run(kv_dtype, subs=(), attention=None, one=False):
+        """The calls' logits of one more run on the kernel run's tokens:
+        ``subs`` the kernels replaced by their plain versions; ``one``
+        serves each request alone (a cache of one slot)."""
+        with plain_versions(subs, attention):
+            if not one:
+                return kv_cache_run(tree, cfg, reqs, kv_dtype, DENSE_LM_NEW,
+                                    forced)[::2]
+            return [kv_cache_run(tree, cfg, [r], kv_dtype, DENSE_LM_NEW,
+                                 [f[i:i + 1] for f in forced])[0]
+                    for i, r in enumerate(reqs)], None
+
+    mx = lambda a, b: [round(float((x - y).abs().max()), 4)
+                       for x, y in zip(a, b)]
+    b_calls, b_cache = run(torch.bfloat16)
+    p_calls, p_cache = run(torch.int8, both)
+    l_calls, l_cache = run(torch.int8, ["cfmm_matmul"])
+    pb_calls, _ = run(torch.bfloat16, both)
+    lost_calls, _ = run(torch.int8, both, lost_tile_attention)
+    with per_row_scales():
+        rk_calls, _ = run(torch.int8)
+        rp_calls, _ = run(torch.int8, both)
+    one_k, _ = run(torch.int8, one=True)
+    one_p, _ = run(torch.int8, both, one=True)
+    vs_plain, vs_bf16 = mx(k_calls, p_calls), mx(k_calls, b_calls)
+    vs_linear, bf16_spread = mx(k_calls, l_calls), mx(b_calls, pb_calls)
+    lost, per_row = mx(p_calls, lost_calls), mx(rk_calls, rp_calls)
+    alone = [max(x) for x in map(mx, one_k, one_p)]
+    prefill_same = all(torch.equal(a, b)
+                       for a, b in zip(k_calls[:n_pre], b_calls[:n_pre]))
+    kq, pq, lq = (dict(_kv_leaves(c)) for c in (k_cache, p_cache, l_cache))
+    codes_equal = all(torch.equal(kq[p], lq[p]) for p in kq)
+    layer0_equal = all(torch.equal(kq[p][0], pq[p][0]) for p in kq)
+    plain_share = {key: round(float(torch.cat([
+        (kq[p] == pq[p]).flatten() for p in kq if p.endswith(f"/{key}")])
+        .float().mean()), 4) for key in ("k", "v")}
+    q_bytes = sum(t.numel() * t.element_size() for t in kq.values())
+    b_bytes = sum(t.numel() * t.element_size()
+                  for _, t in _kv_leaves(b_cache))
+    finite = all(bool(torch.isfinite(c).all()) for c in k_calls)
+    print(f"[lm] {label}: int8 KV cache ({len(reqs)} prompts "
+          f"{[len(r.prompt) for r in reqs]}, one slot each at exact length, "
+          f"{n_dec} decode steps; the other runs on the kernel run's "
+          f"tokens), max|dlogit| per call (4 prefills, then the steps): vs "
+          f"the plain versions {vs_plain}; vs the bf16 cache {vs_bf16} "
+          f"(prefills bit-equal {prefill_same}); vs the plain linear only "
+          f"{vs_linear}; codes and scales equal to the plain-linear run's "
+          f"{codes_equal}, layer 0 equal to the all-plain run's "
+          f"{layer0_equal}, share of codes equal to the all-plain run's "
+          f"{plain_share}; cache {gib(q_bytes)} against bf16 {gib(b_bytes)} "
+          f"({q_bytes / b_bytes:.4f}x)", flush=True)
+    print(f"[lm] {label}: int8 KV witnesses, kernel vs plain: the bf16 "
+          f"cache {bf16_spread}; per-row activation scales {per_row}; each "
+          f"request alone, max over its calls {alone}; planted lost tile "
+          f"{lost}; bound {LM_KV_INT8_BOUND}", flush=True)
+    check(finite, f"{label}: non-finite logits with the int8 KV cache")
+    check(prefill_same, f"{label}: an int8-cache prefill differs from the "
+          "bf16 cache's")
+    check(codes_equal and max(vs_linear) == 0.0,
+          f"{label}: the int8 KV run differs from the plain-linear one")
+    check(layer0_equal, f"{label}: layer 0's int8 KV codes differ from the "
+          "plain run's")
+    check(max(vs_plain[:n_pre]) <= LM_LOGIT_BOUND
+          and max(vs_plain[n_pre:]) <= LM_KV_INT8_BOUND,
+          f"{label}: int8 KV cache, kernel off plain by {vs_plain}")
+    check(max(alone) <= LM_LOGIT_BOUND,
+          f"{label}: int8 KV cache, a request alone off plain by {alone}")
+    check(min(lost[n_pre:]) > LM_KV_INT8_BOUND,
+          f"{label}: the planted lost tile passes the bound: {lost}")
+    return dict(vs_plain=vs_plain, vs_bf16_cache=vs_bf16,
+                prefill_equal_bf16=prefill_same, codes_equal_plain_linear=
+                codes_equal, layer0_equal_plain=layer0_equal,
+                codes_equal_share_plain=plain_share, bf16_cache_spread=
+                bf16_spread, per_row_scales=per_row, alone=alone,
+                lost_tile=lost, cache_bytes=q_bytes,
+                bf16_cache_bytes=b_bytes)
+
+
+# extra checks of one served path, by label: (a) and (b) above
+LM_EXTRA_CHECKS = {"qwen2_vl_7b/dense": "mrope", "qwen2_vl_7b/int8": "int8_kv"}
+
+
 def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu,
              n_layers=None):
     """Serve one LM config at full width on the card in each of ``modes``:
@@ -2467,6 +2780,9 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu,
         got = ((m.kind, m.d_inner, m.d_state, m.d_conv, m.dt_rank)
                if m.kind == "mamba" else (m.kind, m.head_dim, m.decay_lora))
         check(got == PUBLISHED_SSM[arch], f"{arch}: not the published SSM")
+    if arch in PUBLISHED_MROPE:
+        check(cfg.pos == "mrope" and (cfg.mrope_sections, cfg.rope_theta)
+              == PUBLISHED_MROPE[arch], f"{arch}: not the published M-RoPE")
     if n_layers is not None:
         print(f"[lm] {arch}: published depth {cfg.n_layers} layers, served "
               f"at {n_layers} (the published widths)", flush=True)
@@ -2672,6 +2988,12 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu,
                 dec_bound, rec_replay or rec, rec_plain,
                 route=route_p if cfg.moe is not None else None)
         del rec_plain
+        extra = LM_EXTRA_CHECKS.get(label)
+        mrope = kv_int8 = None
+        if extra == "mrope":
+            mrope = mrope_check(kernels, tree, cfg, label)
+        elif extra == "int8_kv":
+            kv_int8 = int8_kv_check(kernels, tree, cfg, reqs, label)
         peak = max(seen_peak, torch.cuda.max_memory_allocated())
         print(f"[lm] {label}: peak device memory {gib(peak)} (init "
               f"{gib(init_peak)}) of "
@@ -2690,6 +3012,7 @@ def serve_lm(kernels, card, arch, modes, prompts, new, n_cpu,
             routing=routing, bucketed_vs_unpadded=bucketed,
             state_carry=carry, profile=prof,
             plain_linear=plain_linear, decode_witnesses=witnesses,
+            mrope_positions=mrope, int8_kv_cache=kv_int8,
             peak_bytes=peak, init_peak_bytes=init_peak,
             compile_peak_bytes=compile_peak if linear else None)
         del eng, rec, tree, make, route_k, route_p, rec_replay
@@ -2942,10 +3265,10 @@ def _clone_tree(t):
 
 
 def _kv_leaves(cache, path=""):
-    """(path, leaf) of every attention cache leaf (``k``/``v``; MLA's
-    latent ``c_kv`` and ``k_rope``), as (layers, slots, S, ...): a prefix
-    or suffix layer's (slots, S, ...) leaf gets a view with a leading
-    layer axis of 1."""
+    """(path, leaf) of every attention cache leaf (``k``/``v`` and an
+    int8 cache's scales ``k_s``/``v_s``; MLA's latent ``c_kv`` and
+    ``k_rope``), as (layers, slots, S, ...): a prefix or suffix layer's
+    (slots, S, ...) leaf gets a view with a leading layer axis of 1."""
     if isinstance(cache, dict):
         for k, v in cache.items():
             yield from _kv_leaves(v, f"{path}/{k}")
@@ -2953,7 +3276,7 @@ def _kv_leaves(cache, path=""):
         for i, v in enumerate(cache):
             yield from _kv_leaves(v, f"{path}[{i}]")
     elif isinstance(cache, torch.Tensor) and path.rsplit("/", 1)[-1] in (
-            "k", "v", "c_kv", "k_rope"):
+            "k", "v", "k_s", "v_s", "c_kv", "k_rope"):
         yield path, cache if path.startswith("/template") else cache[None]
 
 

@@ -25,7 +25,15 @@ expands them into per-head keys and values and runs the flash kernel at
 D = qk_nope + qk_rope, Dv = v_dim; its decode step never expands the
 cache: ``k_up`` is pulled through the query and ``v_up`` through the
 context (the absorbed path, in f32, plain PyTorch as in the JAX
-package).  The int8 KV cache is not ported (ROADMAP A8).
+package).
+
+The int8 KV cache (``gqa_cache_spec(dtype=torch.int8)``) stores ``k``/``v``
+as per-(token, head) symmetric int8 codes with bf16 scales ``k_s``/``v_s``
+``(B, S_max, KVH)`` (``_kv_quant``).  A prefill writes the prompt's codes
+and attends its own unquantized k and v; a decode step appends its codes
+and dequantizes the cache in f32 (``decode_attention(scales=...)``), as
+the JAX package does.  MLA's latent cache stays bf16 under int8, as in
+JAX.
 """
 from __future__ import annotations
 
@@ -94,9 +102,10 @@ def gqa_init(gen, cfg):
 def gqa_forward(p, x, cfg, positions, window=None, causal=True,
                 cache=None, cross_kv=None, qat=False):
     """Returns (out, new_cache).  cache: dict(k, v: (B, S_max, KVH, D),
-    length: host int32 scalar) — None for a cacheless forward; T == 1
-    with a cache is a decode step (append), T > 1 a prefill (write the
-    whole prompt from position 0)."""
+    length: host int32 scalar; with int8 k/v also k_s, v_s: (B, S_max,
+    KVH) bf16) — None for a cacheless forward; T == 1 with a cache is a
+    decode step (append), T > 1 a prefill (write the whole prompt from
+    position 0).  ``positions``: (B, T), or (3, B, T) under M-RoPE."""
     if cross_kv is not None:
         raise NotImplementedError(f"encoder-decoder cross attention {_A8}")
     B, T, d = x.shape
@@ -107,43 +116,66 @@ def gqa_forward(p, x, cfg, positions, window=None, causal=True,
     if "qn" in p:
         q = rmsnorm(p["qn"], q)
         k = rmsnorm(p["kn"], k)
-    if cfg.pos == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos == "mrope":
-        raise NotImplementedError(f"M-RoPE {_A8}")
+    if cfg.pos in ("rope", "mrope"):
+        sections = cfg.mrope_sections if cfg.pos == "mrope" else None
+        q = apply_rope(q, positions, cfg.rope_theta, sections)
+        k = apply_rope(k, positions, cfg.rope_theta, sections)
 
     new_cache = None
     if cache is not None:
-        ck, cv = cache["k"], cache["v"]
-        if ck.dtype == torch.int8:
-            raise NotImplementedError(f"the int8 KV cache {_A8}")
-        if T == 1:  # decode: append at the shared length counter
-            idx = int(cache["length"])
-            ck[:, idx:idx + 1] = k.to(ck.dtype)
-            cv[:, idx:idx + 1] = v.to(cv.dtype)
-            new_cache = {"k": ck, "v": cv, "length": cache["length"] + 1}
-            out = decode_attention(q, ck, cv, idx + 1, window)
+        rows = {"k": k, "v": v}
+        if cache["k"].dtype == torch.int8:  # codes and bf16 scales
+            (rows["k"], rows["k_s"]), (rows["v"], rows["v_s"]) = \
+                _kv_quant(k), _kv_quant(v)
+        # decode appends at the shared length counter; a prefill writes
+        # the whole prompt from position 0
+        decode = T == 1
+        start = int(cache["length"]) if decode else 0
+        for key, val in rows.items():
+            cache[key][:, start:start + T] = val
+        new_cache = {**cache, "length": cache["length"] + 1 if decode
+                     else torch.tensor(T, dtype=torch.int32)}
+        if decode:
+            scales = (cache["k_s"], cache["v_s"]) if "k_s" in cache else None
+            out = decode_attention(q, cache["k"], cache["v"], start + 1,
+                                   window, scales)
             return (apply_linear(p["o"], out.reshape(B, 1, H * D), qat),
                     new_cache)
-        ck[:, :T] = k.to(ck.dtype)      # prefill: write the whole prompt
-        cv[:, :T] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv,
-                     "length": torch.tensor(T, dtype=torch.int32)}
     o = gqa_attention(q, k, v, causal=causal, window=window)
     return apply_linear(p["o"], o.reshape(B, T, H * D), qat), new_cache
+
+
+# f32(1 / 127): XLA rewrites the quantizer's ``/ 127.0`` as a multiply by
+# it under jit (the JAX oracle), so the port multiplies on every device
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _kv_quant(x):
+    """Per-(token, head) symmetric int8: x (B, T, KVH, D) -> codes, scales.
+
+    The codes are rounded (half to even, as ``jnp.round``) against the f32
+    scale; the scale is stored in bf16, and dequantization reads that
+    rounded scale, as in the JAX package.  ``x / scale`` is a true division
+    (tensor by tensor, on the card too)."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp_min(amax, 1e-6) * _INV_127         # (B, T, KVH)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def decode_attention(q, ck, cv, length, window=None, scales=None):
     """Single-token attention against the cache, in f32.  q: (B, 1, H, D);
     ck/cv: (B, S_max, KVH, D); keys at positions < ``length`` (a host
-    int) are valid."""
-    if scales is not None:
-        raise NotImplementedError(f"the int8 KV cache {_A8}")
+    int) are valid.  ``scales``: (k_s, v_s) (B, S_max, KVH) bf16 when the
+    cache holds int8 codes, dequantized in f32 as ``code * scale``."""
     B, S, KVH, D = ck.shape
     H = q.shape[2]
     G = H // KVH
     qh = q.reshape(B, KVH, G, D)
+    if scales is not None:
+        ck = ck.float() * scales[0].float()[..., None]
+        cv = cv.float() * scales[1].float()[..., None]
     # jnp.sqrt(D), an f32 value, as a device tensor: a true division on
     # the card too (CUDA divides by a Python scalar via its reciprocal)
     sqrt_d = torch.tensor(float(np.sqrt(np.float32(D))), device=q.device)
@@ -159,17 +191,22 @@ def decode_attention(q, ck, cv, length, window=None, scales=None):
 
 
 def gqa_cache_spec(cfg, B, S_max, dtype=torch.bfloat16, device="cpu"):
-    if dtype == torch.int8:
-        raise NotImplementedError(f"the int8 KV cache {_A8}")
     KVH, D = cfg.n_kv_heads, cfg.head_dim
     axes = ("batch", "kv_seq", "heads_kv_sharded", None)
-    return {
+    spec = {
         "k": nn.Param(torch.zeros((B, S_max, KVH, D), dtype=dtype,
                                   device=device), axes),
         "v": nn.Param(torch.zeros((B, S_max, KVH, D), dtype=dtype,
                                   device=device), axes),
         "length": nn.Param(torch.zeros((), dtype=torch.int32), ()),
     }
+    if dtype == torch.int8:  # per-(token, head) dequant scales
+        for s in ("k_s", "v_s"):
+            spec[s] = nn.Param(torch.zeros((B, S_max, KVH),
+                                           dtype=torch.bfloat16,
+                                           device=device),
+                               ("batch", "kv_seq", "heads_kv_sharded"))
+    return spec
 
 
 # ---------------------------------------------------------------------------

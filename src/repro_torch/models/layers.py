@@ -5,8 +5,8 @@ Every matmul weight is an ``nn.linear_param``, so the paper's
 constant-parameter compilation (core/compiled_linear.py) applies to all
 of them.  Rounding points follow the JAX code: norms compute in f32 and
 cast back to the input's type; RoPE's ``cos``/``sin`` are computed in f32
-and cast to ``x.dtype`` before the rotation.  M-RoPE (Qwen2-VL) is not
-ported (ROADMAP A8).
+and cast to ``x.dtype`` before the rotation.  M-RoPE (Qwen2-VL) rotates
+each section of the frequency axis by its own position stream.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ def layernorm(p, x, eps=1e-5):
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings (standard RoPE)
+# Rotary position embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -56,13 +56,29 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
                mrope_sections: tuple | None = None) -> torch.Tensor:
-    """x: (B, T, H, D); positions: (B, T) int."""
-    if positions.ndim == 3 or mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported (ROADMAP A8)")
+    """x: (B, T, H, D); positions: (B, T) int, or (3, B, T) for M-RoPE.
+
+    M-RoPE (Qwen2-VL): the frequency axis is split into
+    ``mrope_sections``, each rotated by its own position stream
+    (temporal / height / width).  Each section's angles are the same f32
+    products as standard RoPE's, so three equal streams give the standard
+    rotation bit for bit.  Sections that do not cover D/2 raise, as the
+    JAX package asserts."""
     D = x.shape[-1]
     freqs = torch.tensor(rope_freqs(D, theta), dtype=torch.float32,
                          device=x.device)                        # (D/2,)
-    angles = positions.float()[..., None] * freqs                # (B,T,D/2)
+    if positions.ndim == 3:                                      # M-RoPE
+        if mrope_sections is None:
+            raise ValueError("3-D positions need mrope_sections")
+        sec = np.cumsum((0,) + tuple(mrope_sections))
+        if sec[-1] != D // 2:
+            raise ValueError(f"M-RoPE sections {tuple(mrope_sections)} do "
+                             f"not sum to head_dim / 2 = {D // 2}")
+        angles = torch.cat(
+            [positions[i].float()[..., None] * freqs[sec[i]:sec[i + 1]]
+             for i in range(len(mrope_sections))], dim=-1)       # (B,T,D/2)
+    else:
+        angles = positions.float()[..., None] * freqs            # (B,T,D/2)
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)

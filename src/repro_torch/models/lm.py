@@ -16,8 +16,10 @@ interleaves with attention and the MoE), the full forward
 (``forward_train``, with QAT, the per-layer remat, and the MoE aux summed
 over the layers) and its loss (``loss_fn``), prefill (with the serving
 engine's bucketed ``length`` path for attention-only stacks) and decode,
-on compiled or dense (float) weight leaves.  The encoder-decoder and
-M-RoPE raise ``NotImplementedError`` (ROADMAP A8).
+on compiled or dense (float) weight leaves, M-RoPE (Qwen2-VL: a batch
+may carry ``positions`` (3, B, T); else the text positions fill all
+three streams) and the int8 KV cache (``cache_init(kv_dtype=torch.int8)``).
+The encoder-decoder raises ``NotImplementedError`` (ROADMAP A8).
 
 Cache counters (``length``, ``pos``) live on the host; ``k``/``v`` (MLA:
 ``c_kv``/``k_rope``) live with the parameters and are written in place
@@ -96,8 +98,6 @@ def _norm(p, x, cfg):
 def _check_ported(cfg: ArchConfig):
     if cfg.encoder_decoder:
         raise NotImplementedError(f"the encoder-decoder {_A8}")
-    if cfg.pos == "mrope":
-        raise NotImplementedError(f"M-RoPE {_A8}")
 
 
 def block_init(gen, cfg: ArchConfig, sig, cross=False):
@@ -239,7 +239,9 @@ def init(gen: torch.Generator, cfg: ArchConfig):
 def cache_init(cfg: ArchConfig, B: int, S_max: int, S_enc: int | None = None,
                kv_dtype=None, device="cpu"):
     """Decode cache tree (Param-boxed, like the JAX package's): ``k``/``v``
-    on ``device``, the ``length`` and ``pos`` counters on the host."""
+    on ``device``, the ``length`` and ``pos`` counters on the host.
+    ``kv_dtype=torch.int8`` stores every attention layer's KV cache as
+    int8 codes with per-(token, head) bf16 scales ``k_s``/``v_s``."""
     if cfg.encoder_decoder:
         raise NotImplementedError(f"the encoder-decoder {_A8}")
     pos = nn.Param(torch.zeros((B,), dtype=torch.int32), ("batch",))
@@ -272,12 +274,16 @@ def _stack_caches(caches: list):
 # ---------------------------------------------------------------------------
 
 def _positions(cfg, batch, B, T, offset=None):
-    """(B, T) int32 positions on the host."""
-    if cfg.pos == "mrope":
-        raise NotImplementedError(f"M-RoPE {_A8}")
+    """(B, T) int32 positions on the host; under M-RoPE (3, B, T): the
+    batch's ``positions`` as given, else the text positions (plus
+    ``offset`` in decode) in all three streams."""
+    if cfg.pos == "mrope" and "positions" in batch:
+        return torch.as_tensor(batch["positions"])
     base = torch.arange(T, dtype=torch.int32)[None].expand(B, T)
     if offset is not None:
         base = base + offset[:, None]
+    if cfg.pos == "mrope":
+        return base[None].expand(3, B, T)
     return base
 
 

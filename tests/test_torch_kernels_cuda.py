@@ -910,6 +910,11 @@ def _flash_inputs(B, KVH, G, Tq, Tk, D, Dv, dtype, dev, seed=0):
     (1, 1, 3, 70, 70, 192, 128, True, 7),
     (1, 1, 4, 100, 200, 256, 256, True, 24),
     (1, 2, 2, 65, 65, 256, 256, False, None),
+    # Qwen2-VL-7B: 28 heads over 4 KV heads, G = 7 (9 positions per
+    # 64-row tile and one pad row), at the 1024 bucket, ragged, Tq < Tk
+    (1, 4, 7, 1024, 1024, 128, 128, True, None),
+    (2, 4, 7, 37, 37, 128, 128, True, None),
+    (1, 4, 7, 7, 1000, 128, 128, True, None),
 ])
 def test_flash_attention_matches_plain(dev, B, KVH, G, Tq, Tk, D, Dv,
                                        causal, window, dtype):
@@ -1282,6 +1287,7 @@ def test_block_sparse_graph_replay_equals_eager(dev, dtype):
     (1, 4, 256, None, "mma"),        # Gemma3-1B global layers
     (10, 4, 128, None, "mma"),       # Phi-3-medium-14B
     (8, 4, 128, None, "mma"),        # Jamba-v0.1's attention layers
+    (4, 7, 128, None, "mma"),        # Qwen2-VL-7B
 ])
 @pytest.mark.parametrize("T", [1024, 1000])
 def test_flash_attention_matches_plain_at_dense_lm_shapes(
@@ -1300,20 +1306,25 @@ def test_flash_attention_matches_plain_at_dense_lm_shapes(
         float(err.max())
 
 
-# (K, N) of every linear of the three configs, and the untied heads
+# (K, N) of every linear of the dense configs (Gemma3-1B, StableLM-3B,
+# Phi-3-medium, Qwen2-VL-7B), and the untied heads
 DENSE_LM_LINEARS = [
     (1152, 1024), (1152, 256), (1024, 1152), (1152, 6912), (6912, 1152),
     (2560, 2560), (2560, 6912), (6912, 2560), (2560, 50304),
     (5120, 5120), (5120, 1280), (5120, 17920), (17920, 5120),
-    (5120, 100352)]
+    (5120, 100352),
+    # Qwen2-VL-7B: q/o, k/v, gate/up, down, the untied head
+    (3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+    (3584, 152064)]
 
 
 @pytest.mark.parametrize("K,N", DENSE_LM_LINEARS)
 @pytest.mark.parametrize("M", [4, 1024])
 def test_cfmm_matmul_matches_plain_at_dense_lm_shapes(dev, M, K, N):
-    """The int8 mode's linears of Gemma3-1B, StableLM-3B and
-    Phi-3-medium-14B (and the two untied heads) at the decode slots and
-    the largest prefill bucket: the int32 product equal."""
+    """The int8 mode's linears of Gemma3-1B, StableLM-3B,
+    Phi-3-medium-14B and Qwen2-VL-7B (and the three untied heads) at the
+    decode slots and the largest prefill bucket: the int32 product
+    equal."""
     g = torch.Generator().manual_seed(M + K + N)
     x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
     codes = torch.randint(-63, 64, (K, N), generator=g, dtype=torch.int8)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import nn
 from repro_torch.core.compiled_linear import ensure_compiled
 from repro_torch.configs import smollm_360m
 from repro_torch.kernels import (_cuda, block_sparse, cfmm_matmul,
@@ -189,15 +190,19 @@ def test_lm_config_and_unported_parts_raise():
                                                    2560, 49152)
     assert cfg.tie_embeddings and cfg.reduced().n_kv_heads == 1
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        serve.build_cfg("qwen2_vl_7b", "tiny")
+        serve.build_cfg("whisper_small", "tiny")
     # forward_train(qat=True) runs since the training slice (checked in
     # tests/test_torch_lm_dense.py); the encoder-decoder still raises
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         lm.forward_train({}, {}, dataclasses.replace(
             cfg, encoder_decoder=True), qat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        lm.cache_init(serve.build_cfg("smollm_360m", "tiny"), 1, 8,
-                      kv_dtype=torch.int8)
+    # the int8 KV cache is ported: codes and per-(token, head) bf16 scales
+    cache = nn.unbox(lm.cache_init(serve.build_cfg("smollm_360m", "tiny"),
+                                   1, 8, kv_dtype=torch.int8))
+    for layer in cache["template"]:
+        assert layer["k"].dtype == layer["v"].dtype == torch.int8
+        assert layer["k_s"].dtype == layer["v_s"].dtype == torch.bfloat16
+        assert layer["k_s"].shape == layer["k"].shape[:-1]
 
 
 def test_stage_devices_wrap_round_robin():

@@ -49,7 +49,7 @@ LEAF_LR_FACTOR = 2.5
 OPT = dict(lr=3e-3, warmup_steps=20, total_steps=100)
 SERVED = ("smollm_360m", "gemma3_1b", "stablelm_3b", "phi3_medium_14b",
           "olmoe_1b_7b", "deepseek_v2_lite_16b", "rwkv6_7b",
-          "jamba_v01_52b")
+          "jamba_v01_52b", "qwen2_vl_7b")
 
 
 @pytest.fixture(scope="module", autouse=True)
