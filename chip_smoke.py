@@ -24,18 +24,24 @@
    Dv != D, and in bf16 at the prefill shapes of StableLM-3B (D = 80),
    Gemma3-1B (D = 256, window 512 and none), Phi-3-medium and
    OLMoE-1B-7B (D = 128), DeepSeek-V2-Lite's MLA (D = 192, Dv = 128) and
-   Qwen2-VL-7B (D = 128, G = 7) at T = 1024, within ``FLASH_TOL``; the
+   Qwen2-VL-7B (D = 128, G = 7) at T = 1024, Whisper-small's encoder and
+   cross-attention (4 clips of 1500 frames, G = 1, non-causal; a 4-token
+   prompt's and a decode step's one query row against 1500 keys), and a
+   non-causal Tq = 448 > Tk = 24 in bf16 and f32, within ``FLASH_TOL``; the
    flash-attention backward
    (``flash_attention_bwd``, the training path's gradient) in bf16 and f32
    at ``FLASH_BWD_SHAPES`` (SmolLM-360M's and Gemma3-1B's training shapes,
-   seq 512 x batch 8, and the served attention shapes above) from the
+   seq 512 x batch 8, Whisper-small's at batch 2, 1500 frames and 448
+   tokens, Tq > Tk, and the served attention shapes above) from the
    forward kernel's output and log-sum-exp, within ``FLASH_BWD_TOL`` of
    its plain version, timed beside its bound and SDPA's backward (its
    backend named) between CUDA events and as the profiler's kernel
    durations; ``cfmm_matmul`` also at the SSM
    paths' linears (Mamba's x_proj and dt_proj, RWKV's low-rank mix and
    decay projections, Jamba's experts, both 65536-token heads) and at
-   Qwen2-VL-7B's (k/v, gate/up, down, its 152064-token head); prints the
+   Qwen2-VL-7B's (k/v, gate/up, down, its 152064-token head) and, with
+   ``sparse_matvec``, Whisper-small's (6000 encoder rows, the prompts'
+   and decode rows, its 51865-token head); prints the
    variant each shape runs (flash and its backward: the tensor-core
    ``mma`` or the CUDA-core ``fma`` kernels; ``sparse_matvec``: ``rows``
    or ``split`` and its split over K); times each (median of CUDA-event
@@ -109,14 +115,14 @@
    weights initialised and compiled on the card, one model tree and one
    engine alive at a time) through the LM ``ServingEngine``: SmolLM-360M
    in ``int8``, ``sparse_cfmm`` and ``dense`` (8 requests of 37-1000
-   prompt tokens, 16 new tokens each), Gemma3-1B in ``dense``, ``int8``
+   prompt tokens, 8 new tokens each), Gemma3-1B in ``dense``, ``int8``
    and ``sparse_cfmm``, StableLM-3B and Phi-3-medium-14B in ``dense`` and
    ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), the MoE
    OLMoE-1B-7B in ``dense`` at its 16 layers and in ``int8`` and
    ``sparse_cfmm`` at 8 of them, and the MLA +
    MoE DeepSeek-V2-Lite-16B (published widths; its dense first layer,
    64 routed experts top-6 beside 2 shared) in ``dense`` at its published
-   depth of 27 layers and in ``int8`` at 14 (2 requests of 37 and 777
+   depth of 27 layers and in ``int8`` at 8 (2 requests of 37 and 777
    tokens, 2 new tokens each: one decode step), the recurrent RWKV6-7B (published widths and depth) on
    the dense configs' traffic and Jamba-v0.1 (published widths, one
    period of 8 of its 32 layers: Mamba, attention, 16 experts top-2) on
@@ -129,7 +135,7 @@
    dense layer, 4 + 3 per expert in an MoE layer, and the untied head;
    MLA's 5 in a prefill and 3 in a decode step, whose absorbed path
    takes k_up and v_up as dense weights: 5209 and 5155 per DeepSeek
-   forward at 27 layers, 2609 and 2581 at 14; 4 per Mamba mixer, 11 per RWKV layer: 353 per RWKV6
+   forward at 27 layers, 1409 and 1393 at 8; 4 per Mamba mixer, 11 per RWKV layer: 353 per RWKV6
    forward, 237 per Jamba period), the
    first prefills' logits against the CPU's plain forward of the same
    tree (SmolLM two, Gemma3 one; the others are too large for a CPU
@@ -171,6 +177,22 @@
    reports prefill and decode tokens/s, one profiled run's idle share
    (device time summed from the profiler's raw events), the ``int8``
    compile's peak and the peak device memory of each path;
+4a. runs the encoder-decoder, Whisper-small, at its published widths and
+   depth (12 + 12 layers, d 768; seeded random weights initialised on the
+   card) through ``lm.forward_prefill`` and ``lm.forward_decode`` (no
+   engine takes frames, as in the JAX package): (d) one training step in
+   ``dense`` (batch 2, 1500 frames, 448 tokens), its gradients against the
+   plain attention's within ``TRAIN_GRAD_BOUND`` per leaf (SDPA and a lost
+   KV tile as witnesses); then in ``dense``, ``int8`` and ``sparse_cfmm``
+   4 clips of 1500 frames, 4-token prompts, 32 greedy tokens each, the
+   launch counts of the run checked (``whisper_launches``), (a) every
+   call's logits within ``LM_LOGIT_BOUND`` of the CPU's plain forward
+   (clip 0 alone on both, 4 tokens) and of the card's plain versions, equal to the bit to the linears' plain
+   version alone, (b) the decode steps against ``forward_train`` of the
+   same tokens (tests/test_decode.py's protocol), (c) the cross cache bf16
+   (12, 4, 1500, 12, 64) and equal to the prefill's projections in bf16;
+   prints the encoder's ms per clip, prefill ms, decode tokens/s, peak
+   memory, the ``int8`` compile's peak and one profiled run's idle share;
 4b. trains through ``repro_torch.launch.train.main`` at full width, seq
    512, batch 8, Markov data (``train_phase``): SmolLM-360M 12 plain steps
    (finite loss that falls), the same run crashed at step 8 (exit 42, a
@@ -419,7 +441,18 @@ CFMM_SHAPES = [("head", 2, 2048, 1000), ("head", 2, 1280, 1000),
 ] + [(f"Jamba expert {name} cap={M}", M, K, N)
      for M in (128, 8)
      for name, K, N in (("gate/up", 4096, 14336), ("down", 14336, 4096))] + [
-    ("SSM head prefill", 1, 4096, 65536), ("SSM head decode", 4, 4096, 65536)]
+    ("SSM head prefill", 1, 4096, 65536), ("SSM head decode", 4, 4096, 65536)
+] + [
+    # Whisper-small: the encoder over 4 clips of 1500 frames (6000 rows:
+    # q/k/v/o and the cross-attention's k/v, gate/up, down), the 4-token
+    # prompts (16 rows), the decode slots, its untied 768 x 51865 head
+    ("Whisper enc q/k/v/o", 6000, 768, 768),
+    ("Whisper enc gate/up", 6000, 768, 3072),
+    ("Whisper enc down", 6000, 3072, 768),
+    ("Whisper dec q/o prompt", 16, 768, 768),
+    ("Whisper dec gate/up decode", 4, 768, 3072),
+    ("Whisper dec down decode", 4, 3072, 768),
+    ("Whisper head decode", 4, 768, 51865)]
 
 
 def conv_case(spec, dev, gen):
@@ -727,7 +760,8 @@ def check_cfmm(name, M, K, N, dev, gen):
     """The int8 GEMM against its plain version: the int32 product (the
     served call) equal, and with a scale one f32 rounding equal; prints
     the plan (variant, tiles, splits x chunks).  The library yardstick is
-    ``torch._int_mm``, with M zero-padded to the 32 rows it needs."""
+    ``torch._int_mm``, with M zero-padded to the 32 rows it needs and N
+    to a multiple of 8 (Whisper's 51865-token head)."""
     from repro_torch.core.compiled_linear import _compile_leaf_2d, act_quant
     from repro_torch.kernels import cfmm_matmul
     leaf = _compile_leaf_2d(torch.randn((K, N), generator=gen) / K ** .5,
@@ -752,8 +786,8 @@ def check_cfmm(name, M, K, N, dev, gen):
                          per_graph=2)
     b_ms, b_by = bound_ms(2.0 * M * K * N, M * K + K * N + M * N * 4)
     a = F.pad(x_q, (0, 0, 0, max(0, 32 - M))).contiguous()
-    b = codes.t().contiguous().t()
-    check(torch.equal(torch._int_mm(a, b)[:M], out),
+    b = F.pad(codes, (0, -N % 8)).t().contiguous().t()
+    check(torch.equal(torch._int_mm(a, b)[:M, :N], out),
           f"cfmm_matmul {label}: torch._int_mm disagrees with the kernel")
     library_ms = median_ms(lambda: torch._int_mm(a, b))
     p = cfmm_matmul.plan(M, K, N)
@@ -787,7 +821,13 @@ SPARSE_SHAPES = [("head", 2, 2048, 1000), ("LM q/o", 1024, 960, 960),
     # DeepSeek-V2-Lite-16B's routed expert linears (cap rows)
     (f"DeepSeek expert {name} cap={M}", M, K, N)
     for M in (120, 8)
-    for name, K, N in (("gate/up", 2048, 1408), ("down", 1408, 2048))]
+    for name, K, N in (("gate/up", 2048, 1408), ("down", 1408, 2048))] + [
+    # Whisper-small in sparse_cfmm (CFMM_SHAPES' rows)
+    ("Whisper enc q/k/v/o", 6000, 768, 768),
+    ("Whisper enc gate/up", 6000, 768, 3072),
+    ("Whisper enc down", 6000, 3072, 768),
+    ("Whisper dec gate/up decode", 4, 768, 3072),
+    ("Whisper head decode", 4, 768, 51865)]
 
 
 def check_sparse_matvec(label, M, K, N, dev, gen):
@@ -795,7 +835,7 @@ def check_sparse_matvec(label, M, K, N, dev, gen):
     products equal), with the variant and split its ``plan`` picks; the
     library yardstick is one ``torch._int_mm`` of x with the dense codes
     the packed operands stand for, M zero-padded to the 32 rows it
-    needs."""
+    needs and N to a multiple of 8."""
     from repro_torch.core.compiled_linear import (_compile_leaf_2d, act_quant,
                                                   bitmap_unpack)
     from repro_torch.kernels import ref, sparse_matvec
@@ -818,8 +858,8 @@ def check_sparse_matvec(label, M, K, N, dev, gen):
     b_ms, b_by = bound_ms(2.0 * M * nnz, x_q.numel() + bm.numel()
                           + vals.numel() + M * N * 4)
     a = F.pad(x_q, (0, 0, 0, max(0, 32 - M))).contiguous()
-    b = bitmap_unpack(bm, vals).t().contiguous().t()
-    check(torch.equal(torch._int_mm(a, b)[:M], out),
+    b = F.pad(bitmap_unpack(bm, vals), (0, -N % 8)).t().contiguous().t()
+    check(torch.equal(torch._int_mm(a, b)[:M, :N], out),
           f"sparse_matvec {label}: torch._int_mm disagrees with the kernel")
     library_ms = median_ms(lambda: torch._int_mm(a, b))
     variant, splits, per = sparse_matvec.plan(M, K, N)
@@ -844,6 +884,9 @@ FLASH_SHAPES = [
     ("non-causal Tk=1500", 1, 12, 1, 1500, 1500, 64, 64, False, None),
     ("Gemma3-like window 512", 1, 1, 4, 1024, 1024, 256, 256, True, 512),
     ("MLA-like D=192 Dv=128", 1, 16, 1, 512, 512, 192, 128, True, None),
+    # queries past the keys, non-causal with no window (a decoder of 448
+    # tokens over a clip of 24 frames)
+    ("non-causal Tq=448 > Tk=24", 2, 12, 1, 448, 24, 64, 64, False, None),
 ]
 # the dense LM configs' prefill attention at the largest bucket, bf16 only
 LM_FLASH_SHAPES = [
@@ -865,6 +908,12 @@ LM_FLASH_SHAPES = [
     # 64-row tile and one pad row)
     ("Qwen2-VL-7B prefill T=1024", 1, 4, 7, 1024, 1024, 128, 128, True,
      None),
+    # Whisper-small, 12 heads of 64 (G = 1) over 4 clips of 1500 frames:
+    # the non-causal encoder, the cross-attention of the 4-token prompts
+    # and of a decode step (one query row against 1500 keys)
+    ("Whisper encoder T=1500", 4, 12, 1, 1500, 1500, 64, 64, False, None),
+    ("Whisper cross prefill Tq=4", 4, 12, 1, 4, 1500, 64, 64, False, None),
+    ("Whisper cross decode Tq=1", 4, 12, 1, 1, 1500, 64, 64, False, None),
 ]
 # kernel against plain version on the card (as tests/test_torch_kernels_
 # cuda.py): the sums run in other orders and the kernel's p is relative
@@ -951,6 +1000,15 @@ FLASH_BWD_SHAPES = [
     ("Gemma3-1B T=1024 w512", 1, 1, 4, 1024, 1024, 256, 256, True, 512),
     ("DeepSeek-V2-Lite MLA T=1024", 1, 16, 1, 1024, 1024, 192, 128, True,
      None),
+    # Whisper-small's training step (batch 2, 1500 frames, 448 tokens):
+    # the encoder, the cross-attention, the decoder; and queries past the
+    # keys (448 tokens over 24 frames), non-causal
+    ("Whisper train encoder T=1500", 2, 12, 1, 1500, 1500, 64, 64, False,
+     None),
+    ("Whisper train cross Tq=448 Tk=1500", 2, 12, 1, 448, 1500, 64, 64,
+     False, None),
+    ("Whisper train decoder T=448", 2, 12, 1, 448, 448, 64, 64, True, None),
+    ("non-causal Tq=448 > Tk=24", 2, 12, 1, 448, 24, 64, 64, False, None),
 ]
 # backward kernel against its plain version on the card (as tests/test_
 # torch_kernels_cuda.py): both sum in f32 in other orders and round once to
@@ -1842,7 +1900,9 @@ def dense_cnn_phase(kernels, card, trees, serve_images):
 # ---------------------------------------------------------------------------
 
 LM_PROMPTS = (37, 64, 130, 255, 300, 511, 777, 1000)
-LM_NEW, LM_SLOTS = 16, 4
+# 8 new tokens each (16 before Whisper-small's path joined: the run's
+# time), so slots still refill while others are live
+LM_NEW, LM_SLOTS = 8, 4
 # the three larger dense configs: 4 requests (buckets 64, 512, 1024,
 # 1024, so Gemma3's window of 512 binds), 8 new tokens each
 DENSE_LM_PROMPTS = (37, 300, 777, 1000)
@@ -1871,12 +1931,13 @@ LM_PATHS = [
     ("olmoe_1b_7b", ("dense",), OLMOE_PROMPTS, OLMOE_NEW, 0),
     ("olmoe_1b_7b", ("int8", "sparse_cfmm"), OLMOE_PROMPTS, OLMOE_NEW, 0, 8),
     # MLA on the MoE FFN: f32 weights are 58.5 GiB, the int8 tree 14.6 GiB.
-    # `dense` at the published depth (27 layers); `int8` at 14 (the dense
-    # first layer and 13 MoE layers): its checks, host-bound (~276k
+    # `dense` at the published depth (27 layers); `int8` at 8 (the dense
+    # first layer and 7 MoE layers): its checks, host-bound (~276k
     # launches a profiled run), took 152 s of a 1041 s run at 27 layers
-    # once the training phases joined
+    # once the training phases joined, 61.1 s of a 970.9 s run at 14 once
+    # Whisper-small's path joined
     ("deepseek_v2_lite_16b", ("dense",), OLMOE_PROMPTS, OLMOE_NEW, 0),
-    ("deepseek_v2_lite_16b", ("int8",), OLMOE_PROMPTS, OLMOE_NEW, 0, 14),
+    ("deepseek_v2_lite_16b", ("int8",), OLMOE_PROMPTS, OLMOE_NEW, 0, 8),
     # RWKV-6: f32 weights 28.2 GiB, at its published depth
     ("rwkv6_7b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
     # Jamba: 192.1 GiB of f32 weights at 32 layers; one period of 8 layers
@@ -1938,7 +1999,8 @@ LM_LOGIT_BOUND = 0.5
 # both runs.  A planted fault (one lost 64-key tile) reads 2.2-3.7 on
 # those decode steps.  Held to 1.0: 1.17x the largest healthy reading,
 # below half the planted one.  DeepSeek-V2-Lite-16B's int8 decode step
-# reads 0.5273 (logits of std 0.88) on the plain run's routing replayed,
+# (at 14 layers) reads 0.5273 (logits of std 0.88) on the plain run's
+# routing replayed,
 # with every witness on one routing: the plain step on the kernel's
 # cache exact; its 37-token slot's latent pad rows swapped in move the
 # step by 0.6094; one slot 0.207; a per-row scale 0.5557; SDPA 0.5962
@@ -3281,6 +3343,407 @@ def _kv_leaves(cache, path=""):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4a: the encoder-decoder, Whisper-small, through lm.forward_prefill
+# and lm.forward_decode (no engine takes frames, in either package)
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper_small"
+WHISPER_MODES = ("dense", "int8", "sparse_cfmm")
+# (n_enc_layers, n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff,
+# vocab, dec_len) as published (configs/whisper_small.py names the source)
+PUBLISHED_ENC_DEC = {WHISPER: (12, 12, 768, 12, 12, 64, 3072, 51865, 448)}
+# 4 clips of 30 s (1500 post-conv frames each), a 4-token decoder prompt
+# each, 32 greedy new tokens: one prefill and 31 decode steps
+WHISPER_CLIPS, WHISPER_FRAMES = 4, 1500
+WHISPER_PROMPT, WHISPER_NEW = 4, 32
+# check (a) against the CPU: clip 0 alone, a prefill and 3 decode steps
+# (the CPU's plain sparse product unpacks every bitmap at every call:
+# 48.2 s for 32 tokens in sparse_cfmm, H100 80GB HBM3 host, 700.00 W)
+WHISPER_CPU_NEW = 4
+# the training check: batch 2, 1500 frames, the decoder's 448 tokens
+WHISPER_TRAIN_BATCH = 2
+# tests/test_decode.py's protocol: decode against the full forward within
+# 0.06 of max |logit|, greedy tokens equal where the full forward's top
+# token leads by more than 0.05 of it
+WHISPER_DECODE_REL, WHISPER_DECODE_MARGIN = 0.06, 0.05
+
+
+def whisper_inputs(cfg, clips, frames, tokens, seed=0):
+    """Seeded post-conv frames (clips, frames, d_model) bf16 and decoder
+    tokens (clips, tokens) in [1, vocab), on the CPU."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(clips, frames, cfg.d_model).astype(
+        np.float32)).to(torch.bfloat16)
+    return x, torch.from_numpy(rng.randint(1, cfg.vocab, (clips, tokens)))
+
+
+@torch.no_grad()
+def whisper_generate(tree, cfg, frames, prompt, new, forced=None):
+    """Greedy decoding on ``frames``' device: ``lm.forward_prefill`` over
+    the frames and the prompt, then ``new - 1`` ``lm.forward_decode``
+    steps against a cache of ``dec_len`` tokens.  ``forced`` (clips, new)
+    feeds those tokens instead of the run's own picks, so that two runs
+    see the same inputs at every call.  Returns the last-position logits
+    of every call (f32), the tokens picked (clips, new) on the CPU, each
+    call's host time with the device synchronised, and the cache."""
+    from repro_torch import nn
+    from repro_torch.models import lm
+    dev = frames.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cache = nn.unbox(lm.cache_init(cfg, frames.shape[0], cfg.dec_len,
+                                   S_enc=frames.shape[1], device=dev))
+    batch, step = {"frames": frames, "tokens": prompt}, lm.forward_prefill
+    logits, picks, times = [], [], []
+    for i in range(new):
+        sync()
+        t0 = time.perf_counter()
+        out, cache = step(tree, batch, cfg, cache)
+        sync()
+        times.append(time.perf_counter() - t0)
+        logits.append(out[:, -1].float())
+        own = logits[-1].argmax(-1).cpu()
+        picks.append(own if forced is None else forced[:, i])
+        batch, step = {"token": picks[-1][:, None].to(dev)}, lm.forward_decode
+    return dict(logits=logits, tokens=torch.stack(picks, 1), times=times,
+                cache=cache)
+
+
+def whisper_launches(cfg, steps, linear) -> dict:
+    """Launches of one prefill and ``steps`` decode steps: flash for every
+    encoder layer and each decoder layer's self and cross-attention in the
+    prefill, the cross-attention alone in a step (its self-attention reads
+    the cache in plain PyTorch); the linears: 7 per encoder layer, 11 per
+    decoder layer in the prefill (the cross k/v projections there), 9 in a
+    step, and the untied head once per call."""
+    want = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers
+            + cfg.n_layers * steps}
+    if linear:
+        want[linear] = (7 * cfg.n_enc_layers + 11 * cfg.n_layers + 1
+                        + (9 * cfg.n_layers + 1) * steps)
+    return want
+
+
+def call_dlogits(run_a, run_b) -> list:
+    """max |dlogit| per call of two ``whisper_generate`` runs."""
+    return [float((a.cpu() - b.cpu()).abs().max())
+            for a, b in zip(run_a["logits"], run_b["logits"])]
+
+
+def whisper_train_check(kernels, params, cfg, label):
+    """Check (d): one training step at full width in ``dense`` (batch 2,
+    1500 frames, 448 decoder tokens): the flash launches of a step (two
+    forwards per attention layer under the remat, one backward), its
+    gradients against the same step with the plain attention
+    (per-leaf relative L2 within ``TRAIN_GRAD_BOUND``), SDPA and a lost KV
+    tile as witnesses, and one AdamW step's time on a copy of the
+    weights."""
+    from repro_torch import nn
+    from repro_torch.training import optimizer
+    from repro_torch.training.train_step import make_train_step, \
+        value_and_grad
+    dev = torch.device("cuda")
+    frames, toks = whisper_inputs(cfg, WHISPER_TRAIN_BATCH, WHISPER_FRAMES,
+                                  cfg.dec_len, seed=1)
+    batch = {"frames": frames.to(dev), "tokens": toks.to(dev),
+             "labels": toks.to(dev)}
+    p = nn.unbox(params)
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    zero_launches(kernels)
+    loss_k, _, g_k = value_and_grad(p, batch, cfg)
+    torch.cuda.synchronize()
+    launches = (kernels["flash_attention"].launches,
+                kernels["flash_attention_bwd"].launches)
+    check(launches == (2 * n_attn if cfg.remat else n_attn, n_attn),
+          f"{label}: flash launches forward / backward {launches} in a "
+          f"training step, want {2 * n_attn} / {n_attn}")
+    with plain_versions(["flash_attention"]):
+        loss_p, _, g_p = value_and_grad(p, batch, cfg)
+    rel = grad_rel_l2(g_k, g_p)
+    del g_k
+    with plain_versions(["flash_attention"], attention=sdpa_attention):
+        sdpa = max(grad_rel_l2(value_and_grad(p, batch, cfg)[2],
+                               g_p).values())
+    with plain_versions(["flash_attention"], attention=lost_tile_attention):
+        lost = max(grad_rel_l2(value_and_grad(p, batch, cfg)[2],
+                               g_p).values())
+    del g_p
+    worst = max(rel, key=rel.get)
+    copy = nn.tree_map(lambda t: t.clone(), p)
+    opt_state = optimizer.init(copy)
+    step = make_train_step(cfg, optimizer.OptConfig(lr=1e-4))
+    copy, opt_state, _ = step(copy, opt_state, batch)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    copy, opt_state, m = step(copy, opt_state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del copy, opt_state
+    n_tok = WHISPER_TRAIN_BATCH * (WHISPER_FRAMES + cfg.dec_len)
+    print(f"[lm] {label} train step (batch {WHISPER_TRAIN_BATCH}, "
+          f"{WHISPER_FRAMES} frames, {cfg.dec_len} tokens): {step_ms:.1f} "
+          f"ms, {n_tok / step_ms * 1e3:.0f} frames + tokens/s, peak "
+          f"{gib(peak)}; loss {loss:.5f}; flash launches forward / "
+          f"backward {launches}; gradients vs the plain attention: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}, per-leaf relative "
+          f"L2 max {rel[worst]:.3g} ({worst}), median "
+          f"{float(np.median(list(rel.values()))):.3g}, bound "
+          f"{TRAIN_GRAD_BOUND}; witnesses: SDPA vs plain {sdpa:.3g}, a "
+          f"planted lost KV tile {lost:.3g}", flush=True)
+    check(np.isfinite(loss), f"{label}: non-finite training loss")
+    check(rel[worst] <= TRAIN_GRAD_BOUND,
+          f"{label}: gradient {worst} off the plain attention's by "
+          f"{rel[worst]:.3g}")
+    check(lost > TRAIN_GRAD_BOUND, f"{label}: the planted lost tile reads "
+          f"{lost:.3g}, within the bound")
+    return dict(step_ms=step_ms, loss=loss, peak_bytes=peak,
+                launches=dict(zip(("flash_attention", "flash_attention_bwd"),
+                                  launches)),
+                loss_kernels=float(loss_k), loss_plain=float(loss_p),
+                max_rel_l2=rel[worst], leaf=worst,
+                median_rel_l2=float(np.median(list(rel.values()))),
+                sdpa_vs_plain=sdpa, planted_lost_tile=lost)
+
+
+def serve_whisper(kernels, card):
+    """Whisper-small at its published widths and depth (12 + 12 layers, d
+    768) on the card, seeded random weights initialised there: check (d),
+    one training step in ``dense``; then in each of ``WHISPER_MODES`` 4
+    clips of 1500 frames, 4-token prompts and 32 greedy tokens
+    (``whisper_generate``), with the launch counts of the run
+    (``whisper_launches``); (a) every call's logits within
+    ``LM_LOGIT_BOUND`` of the CPU's plain forward (clip 0 served alone on
+    both, ``WHISPER_CPU_NEW`` tokens: a compiled mode's activation scale
+    spans the batch) and of a card run with
+    the path's kernels' plain versions substituted, and in a compiled
+    mode equal to the bit to a run with only the linears' plain version
+    (each on the kernel run's tokens); (b) the decode steps against
+    ``forward_train`` of the same tokens (tests/test_decode.py's
+    protocol); (c) the cross cache bf16 (12, 4, 1500, 12, 64) and equal to
+    the prefill's projections of the encoder's output cast to bf16.
+    Prints the encoder's ms per clip, the prefill's ms, decode tokens/s,
+    the peak device memory, the ``int8`` compile's peak, one profiled
+    run's device busy and idle share, and launches per forward."""
+    from repro_torch import nn
+    from repro_torch.core.compiled_linear import _compile_leaf, \
+        ensure_compiled
+    from repro_torch.launch.serve import build_cfg
+    from repro_torch.models import lm
+    from torch.profiler import ProfilerActivity, profile
+    cfg = build_cfg(WHISPER, "full")
+    check((cfg.n_enc_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dec_len)
+          == PUBLISHED_ENC_DEC[WHISPER], f"{WHISPER}: not the published "
+          "widths and depth")
+    dev = torch.device("cuda")
+    total = gib(torch.cuda.get_device_properties(0).total_memory)
+    frames, prompt = whisper_inputs(cfg, WHISPER_CLIPS, WHISPER_FRAMES,
+                                    WHISPER_PROMPT)
+    frames_d, prompt_d = frames.to(dev), prompt.to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.value.numel() for p in nn.tree_leaves(
+        params, is_leaf=lambda x: isinstance(x, nn.Param)))
+    init_peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] {WHISPER} full width: {n_params / 1e6:.1f} M params, init "
+          f"on the card {time.perf_counter() - t0:.1f}s; f32 tree "
+          f"{gib(4 * n_params)}, peak during init {gib(init_peak)} of "
+          f"{total}", flush=True)
+    results = {f"{WHISPER}/train": whisper_train_check(
+        kernels, params, cfg, f"{WHISPER}/dense")}
+    for mode in WHISPER_MODES:
+        label = f"{WHISPER}/{mode}"
+        linear = LM_LINEAR.get(mode)
+        t_mode = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ctree = ensure_compiled(params, mode, 0.8)
+        torch.cuda.synchronize()
+        compile_peak = torch.cuda.max_memory_allocated()
+        tree = nn.unbox(ctree)
+        if linear:
+            print(f"[lm] {label}: compile peak {gib(compile_peak)} (the f32 "
+                  f"tree and the compiled one) of {total}", flush=True)
+            # one stacked leaf, the cross-attention's k, compiled on the
+            # CPU: the card's bytes
+            leaf = params["dec_blocks"]["xattn"]["k"]
+            cpu_leaf = _compile_leaf(nn.Param(leaf.value[0].cpu(),
+                                              leaf.axes[1:], leaf.kind),
+                                     mode, 0.8)
+            for key, p in cpu_leaf.items():
+                check(torch.equal(tree["dec_blocks"]["xattn"]["k"][key][0]
+                                  .cpu(), p.value),
+                      f"{label}: the card's compiled xattn k[{key}] "
+                      "differs from the CPU's")
+        whisper_generate(tree, cfg, frames_d, prompt_d, 2)     # warm-up
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        run = whisper_generate(tree, cfg, frames_d, prompt_d, WHISPER_NEW)
+        wall = time.perf_counter() - t0
+        counts = {name: kern.launches for name, kern in kernels.items()}
+        want = whisper_launches(cfg, WHISPER_NEW - 1, linear)
+        for name, got in counts.items():
+            check(got == want.get(name, 0), f"{label}: {got} {name} "
+                  f"launches in one prefill and {WHISPER_NEW - 1} steps, "
+                  f"want {want.get(name, 0)}")
+        check(all(bool(torch.isfinite(l).all()) for l in run["logits"])
+              and bool(((run["tokens"] >= 0)
+                        & (run["tokens"] < cfg.vocab)).all()),
+              f"{label}: non-finite logits or tokens out of the vocab")
+        steps = WHISPER_NEW - 1
+        pre_ms = run["times"][0] * 1e3
+        dec_s = sum(run["times"][1:])
+        with torch.no_grad():
+            enc_ms = event_ms(lambda: lm._encode(tree, frames_d, cfg),
+                              reps=3) / WHISPER_CLIPS
+        pre = whisper_launches(cfg, 0, linear)
+        per_fwd = {n: (pre[n], (want[n] - pre[n]) // steps) for n in want}
+        print(f"[lm] {label}: {WHISPER_CLIPS} clips x {WHISPER_FRAMES} "
+              f"frames, prompts of {WHISPER_PROMPT}, {WHISPER_NEW} new "
+              f"tokens each in {wall:.2f}s on {card}; encoder "
+              f"{enc_ms:.2f} ms per clip; prefill {pre_ms:.1f} ms; decode "
+              f"{WHISPER_CLIPS * steps} tokens in {steps} steps, "
+              f"{dec_s * 1e3:.1f} ms = {WHISPER_CLIPS * steps / dec_s:.1f} "
+              f"tok/s; launches {counts}, per prefill / per step "
+              f"{per_fwd}", flush=True)
+
+        # (c) the cross cache: bf16, (layers, clips, frames, KVH, D), the
+        # prefill's projections of the encoder's output cast to bf16
+        cross = run["cache"]["cross"]
+        shape = (cfg.n_layers, WHISPER_CLIPS, WHISPER_FRAMES, cfg.n_kv_heads,
+                 cfg.head_dim)
+        check(all(cross[k].dtype == torch.bfloat16
+                  and tuple(cross[k].shape) == shape for k in ("k", "v")),
+              f"{label}: cross cache {cross['k'].dtype} "
+              f"{tuple(cross['k'].shape)}, want bf16 {shape}")
+        with torch.no_grad():
+            enc = lm._encode(tree, frames_d, cfg)
+            for l, p in enumerate(nn.unstack(tree["dec_blocks"],
+                                             cfg.n_layers)):
+                k, v = lm._cross_kv(p, enc, cfg)
+                check(torch.equal(cross["k"][l], k.to(torch.bfloat16))
+                      and torch.equal(cross["v"][l], v.to(torch.bfloat16)),
+                      f"{label}: cross cache layer {l} is not the "
+                      "prefill's projections in bf16")
+        del enc
+
+        # (a) one clip on the card against the CPU's plain forward of it
+        # (the batch's shared activation scale makes a clip's logits
+        # depend on its batch: the same batch on both sides), then the
+        # batch against the plain versions on the card, and (compiled)
+        # against the linears' plain version alone
+        t0 = time.perf_counter()
+        one = whisper_generate(tree, cfg, frames_d[:1], prompt_d[:1],
+                               WHISPER_CPU_NEW)
+        cpu = whisper_generate(nn.to_device(tree, "cpu"), cfg, frames[:1],
+                               prompt[:1], WHISPER_CPU_NEW,
+                               forced=one["tokens"])
+        d_cpu = call_dlogits(cpu, one)
+        cpu_s = time.perf_counter() - t0
+        del cpu, one
+        substituted = ["flash_attention"] + ([linear] if linear else [])
+        zero_launches(kernels)
+        with plain_versions(substituted):
+            plain = whisper_generate(tree, cfg, frames_d, prompt_d,
+                                     WHISPER_NEW, forced=run["tokens"])
+        check(all(kernels[n].launches == 0 for n in substituted),
+              f"{label}: the substituted run launched {substituted}")
+        d_plain = call_dlogits(plain, run)
+        del plain
+        d_linear = None
+        if linear:
+            with plain_versions([linear]):
+                lin = whisper_generate(tree, cfg, frames_d, prompt_d,
+                                       WHISPER_NEW, forced=run["tokens"])
+            d_linear = max(call_dlogits(lin, run))
+            del lin
+        std = float(run["logits"][0].std())
+        print(f"[lm] {label}: max|dlogit| prefill / decode steps: card vs "
+              f"CPU plain, clip 0 alone, {WHISPER_CPU_NEW} tokens, "
+              f"{d_cpu[0]:.4g} / "
+              f"{max(d_cpu[1:]):.4g} ({cpu_s:.1f}s); the batch vs the "
+              f"plain {' and '.join(substituted)} on "
+              f"the card {d_plain[0]:.4g} / {max(d_plain[1:]):.4g}; vs the "
+              f"plain {linear} alone {d_linear}; logit std {std:.3f}; "
+              f"bound {LM_LOGIT_BOUND}", flush=True)
+        check(max(d_cpu) <= LM_LOGIT_BOUND, f"{label}: card logits off "
+              f"the CPU's by {max(d_cpu):.4g}")
+        check(max(d_plain) <= LM_LOGIT_BOUND, f"{label}: kernel run off "
+              f"the plain run by {max(d_plain):.4g}")
+        check(d_linear in (None, 0.0), f"{label}: the {linear} kernel's run "
+              f"differs from the plain product's by {d_linear}")
+
+        # (b) decode against the full forward of the same tokens
+        with torch.no_grad():
+            toks = torch.cat([prompt, run["tokens"][:, :-1]], 1).to(dev)
+            full, _ = lm.forward_train(tree, {"frames": frames_d,
+                                              "tokens": toks}, cfg)
+        ref = full[:, WHISPER_PROMPT - 1:].float()
+        dec = torch.stack(run["logits"], 1)
+        del full
+        scale = float(ref.abs().max())
+        rel = float((dec - ref).abs().max()) / scale
+        top2 = torch.topk(ref, 2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]) / scale
+        parted = dec.argmax(-1) != ref.argmax(-1)
+        real = int((parted & (margin > WHISPER_DECODE_MARGIN)).sum())
+        print(f"[lm] {label}: decode vs forward_train of the same "
+              f"{toks.shape[1]} tokens: max|dlogit| {rel * scale:.4g} = "
+              f"{rel:.4g} of max|logit| (bound {WHISPER_DECODE_REL}); "
+              f"greedy tokens differ at {int(parted.sum())} of "
+              f"{parted.numel()} positions, {real} past the margin",
+              flush=True)
+        check(rel < WHISPER_DECODE_REL and real == 0, f"{label}: decode off "
+              f"the full forward by {rel:.4g} of max|logit|, {real} tokens "
+              "past the margin")
+
+        # one profiled run: the card's busy and idle share
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            whisper_generate(tree, cfg, frames_d, prompt_d, WHISPER_NEW)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        events = device_kernels(prof)
+        busy = sum(ms for ms, _ in events.values())
+        ours = sum(ms for key, (ms, _) in events.items()
+                   if any(k in key for k in OUR_KERNELS))
+        idle = 1 - busy / prof_ms if events else None
+        print(f"[profile] {label}: wall {prof_ms:.1f} ms, device busy "
+              f"{busy:.2f} ms, idle "
+              f"{'not measured' if idle is None else f'{100 * idle:.1f}%'};"
+              f" the port's kernels {ours:.2f} ms of it; device launches "
+              f"{sum(n for _, n in events.values())}", flush=True)
+        for key, (ms, n) in sorted(events.items(),
+                                   key=lambda kv: -kv[1][0])[:6]:
+            print(f"[profile]   {ms:8.3f} ms x{n:5d}  {key[:110]}",
+                  flush=True)
+        peak = max(compile_peak, torch.cuda.max_memory_allocated())
+        print(f"[lm] {label}: peak device memory {gib(peak)} (init "
+              f"{gib(init_peak)}) of {total}; the mode's checks took "
+              f"{time.perf_counter() - t_mode:.1f}s", flush=True)
+        results[label] = dict(
+            counts=counts, forwards=WHISPER_NEW, wall_s=wall,
+            encoder_ms_per_clip=enc_ms, prefill_ms=pre_ms,
+            decode_tok_s=WHISPER_CLIPS * steps / dec_s, decode_steps=steps,
+            cpu_max_dlogit=max(d_cpu), plain_max_dlogit=max(d_plain),
+            plain_linear_max_dlogit=d_linear, logit_std=std,
+            decode_vs_full_rel=rel, profile=dict(
+                wall_ms=prof_ms, busy_ms=busy, ours_ms=ours, idle=idle),
+            peak_bytes=peak, init_peak_bytes=init_peak,
+            compile_peak_bytes=compile_peak if linear else None)
+        del run, tree, ctree
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Phase 4b: training
 # ---------------------------------------------------------------------------
 
@@ -3733,6 +4196,9 @@ def main() -> int:
         lm_served.update(serve_lm(kernels, card, *path))
         print(f"[time] LM {path[0]} done at "
               f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    whisper = serve_whisper(kernels, card)
+    print(f"[time] LM {WHISPER} done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     trained = train_phase(kernels, card)
     print(f"[time] training phase done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
@@ -3772,6 +4238,12 @@ def main() -> int:
         by_path.update({path: v["counts"][name]
                         for path, v in lm_served.items()
                         if v["counts"][name]})
+        by_path.update({path: v["counts"][name]
+                        for path, v in whisper.items()
+                        if v.get("counts", {}).get(name)})
+        by_path.update({path: v["launches"][name]
+                        for path, v in whisper.items()
+                        if v.get("launches", {}).get(name)})
         by_path.update({f"fleet/resnet50/{wave}": v["launches"][name]
                         for wave, v in fleet.items()
                         if v.get("launches", {}).get(name)})
@@ -3829,6 +4301,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"dense_cnn": dense_cnn}), flush=True)
     print(json.dumps({"lm_serve": lm_served}), flush=True)
+    print(json.dumps({"whisper": whisper}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"examples": examples}), flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)

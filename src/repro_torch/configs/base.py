@@ -141,17 +141,15 @@ class ArchConfig:
         return dataclasses.replace(self, **changes)
 
 
-# the LM configs the port has; the JAX package's other one, whisper_small,
-# waits for the encoder-decoder (ROADMAP A8)
+# the LM configs: every one of the JAX package's
 ARCH_IDS = ("smollm_360m", "gemma3_1b", "stablelm_3b", "phi3_medium_14b",
             "jamba_v01_52b", "deepseek_v2_lite_16b", "olmoe_1b_7b",
-            "rwkv6_7b", "qwen2_vl_7b")
+            "rwkv6_7b", "whisper_small", "qwen2_vl_7b")
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported (ROADMAP A8); the port "
-            f"has {ARCH_IDS}")
+        raise ValueError(f"unknown architecture {name!r}; the configs are "
+                         f"{ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG

@@ -3,7 +3,11 @@
 // Replaces flash_attention_pallas (src/repro/kernels/flash_attention.py:84).
 // q (BH, G, Tq, D), k (BH, Tk, D), v (BH, Tk, Dv), out (BH, G, Tq, Dv),
 // contiguous, f32 or bf16; BH = batch * kv heads.  Queries sit at the end
-// of the key sequence (q_offset = Tk - Tq).  Per (query row, key):
+// of the key sequence (q_offset = Tk - Tq).  Non-causal with no window,
+// every query sees every key and Tq may exceed Tk (the encoder-decoder's
+// cross-attention): q_offset is then negative, and only the causal and
+// window masks, which such a call does not have, read it.  Per (query
+// row, key):
 //   s = (q . k) * scale, summed in f32;
 //   mask by absolute position: key < Tk, causal key <= qpos, window
 //   key > qpos - window; masked s = -1e30 and masked p = 0;
@@ -539,7 +543,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int variant, float scale,
                                       void* stream) {
   if (G < 1 || G > MAX_ROWS || D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_D ||
-      Tq < 1 || Tq > Tk || BH < 1)
+      Tq < 1 || Tk < 1 || (Tq > Tk && (causal || window > 0)) || BH < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {

@@ -11,7 +11,9 @@
 // lse (BH, G, Tq) f32 from the forward; contiguous, f32 or bf16; BH = batch
 // * kv heads.  Queries sit at the end of the keys (q_offset = Tk - Tq) and
 // the masks are the forward's (key < Tk, causal key <= qpos, window key >
-// qpos - window).  Per visible (query row i, key j), all in f32:
+// qpos - window); as there, a non-causal call with no window may have Tq
+// > Tk, its negative q_offset read by no mask.  Per visible (query row i,
+// key j), all in f32:
 //   p    = exp(s * scale - lse_i),   s = q_i . k_j
 //   dv_j += p * dout_i               (summed over the G query heads too)
 //   dp   = dout_i . v_j
@@ -884,7 +886,7 @@ extern "C" int flash_attention_bwd_launch(
     void* dv, int BH, int G, int Tq, int Tk, int D, int Dv, int causal,
     int window, int bf16, int variant, float scale, void* stream) {
   if (G < 1 || G > TILE || D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_D ||
-      Tq < 1 || Tq > Tk || BH < 1)
+      Tq < 1 || Tk < 1 || (Tq > Tk && (causal || window > 0)) || BH < 1)
     return (int)cudaErrorInvalidValue;
   const Args a{q,  k,  v,  o,      dout,   static_cast<const float*>(lse),
                static_cast<float*>(delta), dq, dk, dv, BH, G, Tq, Tk, D, Dv,

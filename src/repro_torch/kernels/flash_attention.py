@@ -15,8 +15,10 @@ computes: f32 scores ``q.k * 1/sqrt(D)``, masks by absolute position
 v's type.  A block holds a q tile of all G groups of one batch x kv
 head, so each staged K/V tile serves every query group; tiles above the
 diagonal or left of the window are skipped; ragged edges are masked,
-never padded.  They take f32 and bf16, any Tq <= Tk, G <= 32 and D,
-Dv <= 256 (Dv may differ from D).
+never padded.  They take f32 and bf16, any Tq <= Tk (any Tq and Tk
+when non-causal with no window: the encoder-decoder's cross-attention,
+a decoder longer than its clip's frames), G <= 32 and D, Dv <= 256 (Dv
+may differ from D).
 
 What bounds it on an H100: at the served shapes, operations (the score
 and ``p.v`` flops of the visible pairs at 989 TFLOP/s bf16) over bytes
@@ -165,15 +167,22 @@ def flash_attention_bwd_plain(q, k, v, o, dout, lse, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q, k, v, name="flash_attention"):
+def _check(q, k, v, causal, window, name="flash_attention"):
+    """Shapes the kernels take: any Tq >= 1 against Tk >= 1 keys when
+    neither a causal mask nor a window reads the query positions (every
+    query sees every key), else Tq <= Tk (queries at the end of the
+    keys); G <= MAX_G; D, Dv <= MAX_D."""
     B, KVH, G, Tq, D = q.shape
     Tk, Dv = k.shape[2], v.shape[-1]
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: f32 or bf16, got {q.dtype}")
-    if not (1 <= Tq <= Tk and G <= MAX_G and D <= MAX_D and Dv <= MAX_D):
-        raise ValueError(f"{name}: needs Tq <= Tk, G <= {MAX_G}, "
-                         f"D, Dv <= {MAX_D}; got Tq={Tq} Tk={Tk} G={G} "
-                         f"D={D} Dv={Dv}")
+    positional = causal or window is not None
+    if not (1 <= Tq and 1 <= Tk and (Tq <= Tk or not positional)
+            and G <= MAX_G and D <= MAX_D and Dv <= MAX_D):
+        raise ValueError(f"{name}: needs Tq <= Tk (any Tq when non-causal "
+                         f"with no window), G <= {MAX_G}, D, Dv <= {MAX_D}; "
+                         f"got Tq={Tq} Tk={Tk} G={G} D={D} Dv={Dv} "
+                         f"causal={causal} window={window}")
     check_cuda("q", q, q.dtype)
     check_cuda("k", k, q.dtype, (B, KVH, Tk, D))
     check_cuda("v", v, q.dtype, (B, KVH, Tk, Dv))
@@ -184,7 +193,7 @@ def _forward(q, k, v, causal, window, with_lse: bool):
     Tk, Dv = k.shape[2], v.shape[-1]
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     kind = variant(q.dtype, D, Dv)
     if kind == "mma":
         q, k, v = _aligned(q, k, v)
@@ -227,7 +236,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, causal: bool = True,
                                          window)
     B, KVH, G, Tq, D = q.shape
     Tk, Dv = k.shape[2], v.shape[-1]
-    _check(q, k, v, "flash_attention_bwd")
+    _check(q, k, v, causal, window, "flash_attention_bwd")
     check_cuda("o", o, q.dtype, (B, KVH, G, Tq, Dv))
     check_cuda("dout", dout, q.dtype, (B, KVH, G, Tq, Dv))
     check_cuda("lse", lse, torch.float32, (B, KVH, G, Tq))

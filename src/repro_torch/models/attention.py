@@ -5,9 +5,11 @@ of ``repro/models/attention.py``).
 Prefill attention goes through ``ops.flash_attention``: the CUDA
 flash-attention kernel for CUDA tensors (the port of the Pallas kernel
 the JAX module names as its TPU schedule), its plain version for CPU
-tensors.  Decode's single query row attends in plain PyTorch
-(``decode_attention``), as in the JAX package, which has no kernel for
-it.  QK^T and AV are activation x activation products, so the paper's
+tensors.  Decode's single query row attends to the self cache in plain
+PyTorch (``decode_attention``), as in the JAX package, which has no
+kernel for it; the encoder-decoder's cross-attention (``cross_kv``)
+takes the flash kernel in prefill and decode alike, non-causal, one
+query row against T_enc keys in a decode step.  QK^T and AV are activation x activation products, so the paper's
 constant-parameter technique does not apply to them; every projection
 routes through ``apply_linear``.
 
@@ -46,7 +48,6 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init
 
 NEG_INF = -1e30
-_A8 = "is not ported (ROADMAP A8)"
 
 
 # ---------------------------------------------------------------------------
@@ -105,24 +106,33 @@ def gqa_forward(p, x, cfg, positions, window=None, causal=True,
     length: host int32 scalar; with int8 k/v also k_s, v_s: (B, S_max,
     KVH) bf16) — None for a cacheless forward; T == 1 with a cache is a
     decode step (append), T > 1 a prefill (write the whole prompt from
-    position 0).  ``positions``: (B, T), or (3, B, T) under M-RoPE."""
-    if cross_kv is not None:
-        raise NotImplementedError(f"encoder-decoder cross attention {_A8}")
+    position 0).  ``positions``: (B, T), or (3, B, T) under M-RoPE.
+
+    ``cross_kv``: the encoder-decoder's precomputed (k, v) (B, T_enc, KVH,
+    D): no k/v projection, no qk-norm or rotation of k, no cache write;
+    the queries attend through the flash kernel (the caller passes
+    ``causal=False``), a decode step's one query row too, as in the JAX
+    package."""
     B, T, d = x.shape
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = apply_linear(p["q"], x, qat).reshape(B, T, H, D)
-    k = apply_linear(p["k"], x, qat).reshape(B, T, KVH, D)
-    v = apply_linear(p["v"], x, qat).reshape(B, T, KVH, D)
+    if cross_kv is None:
+        k = apply_linear(p["k"], x, qat).reshape(B, T, KVH, D)
+        v = apply_linear(p["v"], x, qat).reshape(B, T, KVH, D)
+    else:
+        k, v = cross_kv
     if "qn" in p:
         q = rmsnorm(p["qn"], q)
-        k = rmsnorm(p["kn"], k)
+        if cross_kv is None:
+            k = rmsnorm(p["kn"], k)
     if cfg.pos in ("rope", "mrope"):
         sections = cfg.mrope_sections if cfg.pos == "mrope" else None
         q = apply_rope(q, positions, cfg.rope_theta, sections)
-        k = apply_rope(k, positions, cfg.rope_theta, sections)
+        if cross_kv is None:
+            k = apply_rope(k, positions, cfg.rope_theta, sections)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and cross_kv is None:
         rows = {"k": k, "v": v}
         if cache["k"].dtype == torch.int8:  # codes and bf16 scales
             (rows["k"], rows["k_s"]), (rows["v"], rows["v_s"]) = \

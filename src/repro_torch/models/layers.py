@@ -6,7 +6,8 @@ constant-parameter compilation (core/compiled_linear.py) applies to all
 of them.  Rounding points follow the JAX code: norms compute in f32 and
 cast back to the input's type; RoPE's ``cos``/``sin`` are computed in f32
 and cast to ``x.dtype`` before the rotation.  M-RoPE (Qwen2-VL) rotates
-each section of the frequency axis by its own position stream.
+each section of the frequency axis by its own position stream.  The
+encoder-decoder adds ``sinusoidal_positions`` instead.
 """
 from __future__ import annotations
 
@@ -83,6 +84,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(T: int, d: int) -> np.ndarray:
+    """The encoder-decoder's absolute positions: (T, d) f32, sin on the
+    even columns and cos on the odd ones (the JAX package's numpy table,
+    cast to the activations' type where it is added)."""
+    pos = np.arange(T)[:, None]
+    dim = np.arange(0, d, 2)[None, :] / d
+    ang = pos / (10000.0 ** dim)
+    out = np.zeros((T, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
 
 
 # ---------------------------------------------------------------------------

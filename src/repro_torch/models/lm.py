@@ -18,8 +18,11 @@ over the layers) and its loss (``loss_fn``), prefill (with the serving
 engine's bucketed ``length`` path for attention-only stacks) and decode,
 on compiled or dense (float) weight leaves, M-RoPE (Qwen2-VL: a batch
 may carry ``positions`` (3, B, T); else the text positions fill all
-three streams) and the int8 KV cache (``cache_init(kv_dtype=torch.int8)``).
-The encoder-decoder raises ``NotImplementedError`` (ROADMAP A8).
+three streams), the int8 KV cache (``cache_init(kv_dtype=torch.int8)``)
+and the encoder-decoder (Whisper: a non-causal encoder stack over the
+batch's ``frames``, sinusoidal positions, decoder blocks with
+cross-attention; ``cache_init(S_enc=...)`` adds the bf16 cross k/v cache
+the prefill fills once and every decode step reads).
 
 Cache counters (``length``, ``pos``) live on the host; ``k``/``v`` (MLA:
 ``c_kv``/``k_rope``) live with the parameters and are written in place
@@ -42,9 +45,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed, embed_init, ffn, ffn_init,
                                        layernorm, layernorm_init, lm_head,
-                                       lm_head_init, rmsnorm, rmsnorm_init)
+                                       lm_head_init, rmsnorm, rmsnorm_init,
+                                       sinusoidal_positions)
 
-_A8 = "is not ported (ROADMAP A8)"
+# the encoder's blocks and the decoder's: global attention, a dense FFN
+_ENC_SIG = dict(kind="attn", moe=False, attn_type="global", index=0)
 
 
 # ---------------------------------------------------------------------------
@@ -95,15 +100,9 @@ def _norm(p, x, cfg):
             else layernorm(p, x, cfg.norm_eps))
 
 
-def _check_ported(cfg: ArchConfig):
-    if cfg.encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder {_A8}")
-
-
 def block_init(gen, cfg: ArchConfig, sig, cross=False):
-    _check_ported(cfg)
-    if cross:
-        raise NotImplementedError(f"cross-attention blocks {_A8}")
+    """One block's parameters; ``cross`` adds the decoder's
+    cross-attention (``ln_x``, ``xattn``: q, k, v, o)."""
     p = {"ln1": _norm_init(gen, cfg)}
     if sig["kind"] == "attn":
         p["mixer"] = (attn.mla_init if cfg.mla else attn.gqa_init)(gen, cfg)
@@ -113,6 +112,9 @@ def block_init(gen, cfg: ArchConfig, sig, cross=False):
         p["mixer"] = ssm_mod.rwkv6_init(gen, cfg)
     else:
         raise ValueError(sig)
+    if cross:
+        p["ln_x"] = _norm_init(gen, cfg)
+        p["xattn"] = attn.gqa_init(gen, cfg)
     p["ln2"] = _norm_init(gen, cfg)
     if sig["moe"]:
         p["ffn"] = moe_mod.moe_init(gen, cfg)
@@ -155,7 +157,6 @@ def rwkv_cm(p, x, state=None, qat=False):
 
 def block_cache_init(cfg, sig, B, S_max, cross=False, kv_dtype=None,
                      device="cpu"):
-    _check_ported(cfg)
     if sig["kind"] == "attn":
         spec = attn.mla_cache_spec if cfg.mla else attn.gqa_cache_spec
         return spec(cfg, B, S_max, kv_dtype or torch.bfloat16, device)
@@ -172,7 +173,13 @@ def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
     """Returns (x, new_cache, aux).  ``cache`` None: no state; given with
     decode=False: prefill (written from position 0; a recurrent state
     starts from zero); with decode=True: one decode step.  ``qat``
-    fake-quantizes every dense linear (``apply_linear``)."""
+    fake-quantizes every dense linear (``apply_linear``).
+
+    ``cross_kv`` reaches a block with ``xattn`` (the decoder's): a tuple
+    is the precomputed (k, v) (B, T_enc, KVH, D) of this layer (the
+    prefill's projections, or the decode cache); a tensor is the
+    encoder's output, projected to k and v here (the training path, with
+    ``qat``)."""
     aux = {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
     h = _norm(p["ln1"], x, cfg)
     new_cache = None
@@ -184,8 +191,7 @@ def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
             window = cfg.window if sig["attn_type"] == "local" else None
             out, new_cache = attn.gqa_forward(p["mixer"], h, cfg, positions,
                                               window=window, causal=causal,
-                                              cache=cache, cross_kv=cross_kv,
-                                              qat=qat)
+                                              cache=cache, qat=qat)
     elif sig["kind"] == "mamba":
         out, st = ssm_mod.mamba_forward(
             p["mixer"], h, cfg, state=cache if decode else None, qat=qat)
@@ -197,6 +203,22 @@ def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
     if cfg.post_block_norm:
         out = _norm(p["post_ln1"], out, cfg)
     x = x + out
+
+    if "xattn" in p and cross_kv is not None:
+        if isinstance(cross_kv, tuple):
+            kv = cross_kv
+        else:  # raw encoder states: project k/v here (training path)
+            Bx, Te, _ = cross_kv.shape
+            KVH, D = cfg.n_kv_heads, cfg.head_dim
+            kv = (apply_linear(p["xattn"]["k"], cross_kv,
+                               qat).reshape(Bx, Te, KVH, D),
+                  apply_linear(p["xattn"]["v"], cross_kv,
+                               qat).reshape(Bx, Te, KVH, D))
+        hx = _norm(p["ln_x"], x, cfg)
+        xo, _ = attn.gqa_forward(p["xattn"], hx, cfg, positions,
+                                 causal=False, cross_kv=kv, qat=qat)
+        x = x + xo
+
     h2 = _norm(p["ln2"], x, cfg)
     if sig["moe"]:
         y, aux = moe_mod.moe_forward(p["ffn"], h2, cfg, qat=qat)
@@ -217,13 +239,22 @@ def block_apply(p, x, cfg, sig, positions, cache=None, cross_kv=None,
 # ---------------------------------------------------------------------------
 
 def init(gen: torch.Generator, cfg: ArchConfig):
-    """Boxed parameter tree, on the device of ``gen``."""
-    if cfg.encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder {_A8}")
+    """Boxed parameter tree, on the device of ``gen``.  An
+    encoder-decoder has ``enc_blocks`` (n_enc_layers stacked),
+    ``enc_norm`` and ``dec_blocks`` (n_layers stacked, with
+    cross-attention) in place of the prefix / template / suffix."""
     params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model),
               "final_norm": _norm_init(gen, cfg)}
     if not cfg.tie_embeddings:
         params["head"] = lm_head_init(gen, cfg.d_model, cfg.vocab)
+    if cfg.encoder_decoder:
+        params["enc_blocks"] = nn.vmap_init(
+            lambda g: block_init(g, cfg, _ENC_SIG), gen, cfg.n_enc_layers)
+        params["enc_norm"] = _norm_init(gen, cfg)
+        params["dec_blocks"] = nn.vmap_init(
+            lambda g: block_init(g, cfg, _ENC_SIG, cross=True), gen,
+            cfg.n_layers)
+        return params
     sigs = cfg.layer_sigs()
     pre, period, groups, suf = group_layers(sigs)
     params["prefix"] = [block_init(gen, cfg, sigs[i]) for i in range(pre)]
@@ -241,10 +272,28 @@ def cache_init(cfg: ArchConfig, B: int, S_max: int, S_enc: int | None = None,
     """Decode cache tree (Param-boxed, like the JAX package's): ``k``/``v``
     on ``device``, the ``length`` and ``pos`` counters on the host.
     ``kv_dtype=torch.int8`` stores every attention layer's KV cache as
-    int8 codes with per-(token, head) bf16 scales ``k_s``/``v_s``."""
-    if cfg.encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder {_A8}")
+    int8 codes with per-(token, head) bf16 scales ``k_s``/``v_s``.
+
+    An encoder-decoder's cache is ``dec`` (its decoder layers' self
+    caches, stacked) and ``cross`` (``k``/``v`` (L, B, S_enc, KVH, D),
+    bf16 whatever ``kv_dtype`` is); ``S_enc`` must equal the prefill's
+    frame count and defaults to 1500, Whisper's 30 s of post-conv
+    frames."""
     pos = nn.Param(torch.zeros((B,), dtype=torch.int32), ("batch",))
+    if cfg.encoder_decoder:
+        KVH, D, Se = cfg.n_kv_heads, cfg.head_dim, S_enc or 1500
+        axes = ("batch", "kv_seq", "heads_kv_sharded", None)
+
+        def cross_kv():
+            return nn.Param(torch.zeros((B, Se, KVH, D), dtype=torch.bfloat16,
+                                        device=device), axes)
+
+        dec = [block_cache_init(cfg, _ENC_SIG, B, S_max, kv_dtype=kv_dtype,
+                                device=device) for _ in range(cfg.n_layers)]
+        cross = [{"k": cross_kv(), "v": cross_kv()}
+                 for _ in range(cfg.n_layers)]
+        return {"dec": _stack_caches(dec), "cross": _stack_caches(cross),
+                "pos": pos}
     sigs = cfg.layer_sigs()
     pre, period, groups, suf = group_layers(sigs)
 
@@ -397,7 +446,7 @@ def forward_train(params, batch, cfg: ArchConfig, qat=False):
     JAX rematerialises its scanned layers: under autograd the attention
     forward then runs twice per layer and step."""
     if cfg.encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder {_A8}")
+        return _whisper_forward(params, batch, cfg, qat=qat)
     tokens = batch["tokens"]
     B, T = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
@@ -421,7 +470,7 @@ def forward_prefill(params, batch, cfg: ArchConfig, cache):
     as in the JAX package.
     """
     if cfg.encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder {_A8}")
+        return _whisper_prefill(params, batch, cfg, cache)
     tokens = batch["tokens"]
     B, T = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
@@ -462,7 +511,7 @@ def _rewind_lengths(cache, length: int):
 def forward_decode(params, batch, cfg: ArchConfig, cache):
     """One decode step: token (B, 1) + cache -> (logits, cache)."""
     if cfg.encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder {_A8}")
+        return _whisper_decode(params, batch, cfg, cache)
     token = batch["token"]
     B = token.shape[0]
     x = _embed_tokens(params, token, cfg)
@@ -472,6 +521,120 @@ def forward_decode(params, batch, cfg: ArchConfig, cache):
     x, new_cache, _ = _run_stack(params, x, cfg, info, positions,
                                  cache=cache, decode=True)
     new_cache["pos"] = cache["pos"] + 1
+    return _logits(params, x, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder (Whisper)
+# ---------------------------------------------------------------------------
+
+def _pos_table(T: int, cfg, like: torch.Tensor) -> torch.Tensor:
+    """The sinusoidal table (T, d) in ``like``'s type and device: the f32
+    table rounded once, as JAX's ``jnp.asarray(table, dtype)``."""
+    return torch.from_numpy(sinusoidal_positions(T, cfg.d_model)).to(
+        device=like.device, dtype=like.dtype)
+
+
+def _remat_or_run(fn, remat, *args):
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _encode(params, frames, cfg, qat=False, remat=False):
+    """The encoder stack over post-conv frames (B, T_enc, d): sinusoidal
+    positions added in the frames' type, non-causal blocks, ``enc_norm``.
+    ``remat`` recomputes each layer in the backward pass, as JAX's
+    ``jax.checkpoint`` of its scan body does."""
+    h = frames + _pos_table(frames.shape[1], cfg, frames)[None]
+
+    def layer(p, x):
+        return block_apply(p, x, cfg, _ENC_SIG, None, causal=False,
+                           qat=qat)[0]
+
+    for p in nn.unstack(params["enc_blocks"], cfg.n_enc_layers):
+        h = _remat_or_run(layer, remat, p, h)
+    return _norm(params["enc_norm"], h, cfg)
+
+
+def _whisper_forward(params, batch, cfg, qat=False):
+    """Every decoder position's logits: the encoder over ``frames``, then
+    the causal decoder over ``tokens``, each cross-attention projecting
+    the encoder's output itself."""
+    enc_out = _encode(params, batch["frames"], cfg, qat, cfg.remat)
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, tokens, cfg)
+    x = x + _pos_table(tokens.shape[1], cfg, x)[None]
+
+    def layer(p, x, enc_out):
+        return block_apply(p, x, cfg, _ENC_SIG, None, cross_kv=enc_out,
+                           qat=qat, causal=True)[0]
+
+    for p in nn.unstack(params["dec_blocks"], cfg.n_layers):
+        x = _remat_or_run(layer, cfg.remat, p, x, enc_out)
+    aux = {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
+    return _logits(params, x, cfg, qat), aux
+
+
+def _cross_kv(p, enc_out, cfg):
+    """One decoder layer's cross-attention keys and values, as
+    ``apply_linear`` returns them: (B, T_enc, KVH, D) each."""
+    B, Te, _ = enc_out.shape
+    KVH, D = cfg.n_kv_heads, cfg.head_dim
+    return (apply_linear(p["xattn"]["k"], enc_out).reshape(B, Te, KVH, D),
+            apply_linear(p["xattn"]["v"], enc_out).reshape(B, Te, KVH, D))
+
+
+def _whisper_prefill(params, batch, cfg, cache):
+    """The encoder over ``frames``; every decoder layer's cross k/v
+    written into the cross cache (in place, cast to bf16) while the
+    prompt's decoder layers read them as projected; the decoder's self
+    caches filled from position 0.  Returns the last position's logits
+    and the cache."""
+    frames = batch["frames"]
+    Te = frames.shape[1]
+    Sc = cache["cross"]["k"].shape[2]
+    if Sc != Te:
+        raise ValueError(f"cross cache length {Sc} != encoder frames {Te}: "
+                         f"build the cache with cache_init(S_enc={Te})")
+    enc_out = _encode(params, frames, cfg)
+    layers = nn.unstack(params["dec_blocks"], cfg.n_layers)
+    kvs = [_cross_kv(p, enc_out, cfg) for p in layers]
+    for l, (k, v) in enumerate(kvs):
+        cache["cross"]["k"][l].copy_(k)
+        cache["cross"]["v"][l].copy_(v)
+    tokens = batch["tokens"]
+    B, Td = tokens.shape
+    x = _embed_tokens(params, tokens, cfg)
+    x = x + _pos_table(Td, cfg, x)[None]
+    new_layers = []
+    for l, p in enumerate(layers):
+        x, nc, _ = block_apply(p, x, cfg, _ENC_SIG, None,
+                               cache=_layer(cache["dec"], l),
+                               cross_kv=kvs[l], causal=True, decode=False)
+        new_layers.append(nc)
+    new_cache = {"dec": _restack(cache["dec"], new_layers),
+                 "cross": cache["cross"],
+                 "pos": torch.full((B,), Td, dtype=torch.int32)}
+    return _logits(params, x[:, -1:], cfg), new_cache
+
+
+def _whisper_decode(params, batch, cfg, cache):
+    """One decoder step against the self and cross caches.  Every row
+    takes the position of slot 0 (``pos[0]``), as in the JAX package."""
+    token = batch["token"]
+    x = _embed_tokens(params, token, cfg)
+    S_max = cache["dec"]["k"].shape[2]
+    x = x + _pos_table(S_max, cfg, x)[int(cache["pos"][0])][None, None]
+    new_layers = []
+    for l, p in enumerate(nn.unstack(params["dec_blocks"], cfg.n_layers)):
+        kv = (cache["cross"]["k"][l], cache["cross"]["v"][l])
+        x, nc, _ = block_apply(p, x, cfg, _ENC_SIG, None,
+                               cache=_layer(cache["dec"], l), cross_kv=kv,
+                               causal=True, decode=True)
+        new_layers.append(nc)
+    new_cache = {"dec": _restack(cache["dec"], new_layers),
+                 "cross": cache["cross"], "pos": cache["pos"] + 1}
     return _logits(params, x, cfg), new_cache
 
 

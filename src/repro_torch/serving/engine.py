@@ -18,6 +18,10 @@ in place.
 ``torch.matmul`` in bf16, the weights cast per call); there the bucketed
 prefill is exact, as nothing couples a row to the pad rows.
 
+An encoder-decoder (Whisper) raises at construction: requests carry no
+audio frames here, as in the JAX package; ``lm.forward_prefill`` and
+``lm.forward_decode`` serve it.
+
 The engine runs on the card by default (``device="cuda"``) and raises
 when CUDA is absent unless the caller passes ``device="cpu"``.
 """
@@ -60,6 +64,14 @@ class ServingEngine:
     def __init__(self, cfg: ArchConfig, params, *, mode: str = "int8",
                  sparsity: float = 0.8, batch_slots: int = 4,
                  max_seq: int = 256, device="cuda"):
+        if cfg.encoder_decoder:
+            # as in the JAX package, whose engine builds prefill batches
+            # without ``frames``
+            raise ValueError(
+                f"{cfg.name}: the serving engine takes no encoder frames; "
+                f"serve an encoder-decoder through lm.forward_prefill (a "
+                f"batch with 'frames' and 'tokens', a cache from "
+                f"lm.cache_init(S_enc=...)) and lm.forward_decode")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mode = mode
@@ -75,9 +87,8 @@ class ServingEngine:
         self.active: list[Request | None] = [None] * batch_slots
         # bucketed (end-padded) prefill is exact only when every mixer is
         # causal attention (recurrent states would see the pad tokens)
-        self._bucket_prefill = (not cfg.encoder_decoder and
-                                all(sig["kind"] == "attn"
-                                    for sig in cfg.layer_sigs()))
+        self._bucket_prefill = all(sig["kind"] == "attn"
+                                   for sig in cfg.layer_sigs())
 
     # -- request management --------------------------------------------
     def submit(self, req: Request):

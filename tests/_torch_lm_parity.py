@@ -100,6 +100,56 @@ def jax_tree_from_port(tree):
         tree, is_leaf=lambda x: isinstance(x, tnn.Param))
 
 
+# ---------------------------------------------------------------------------
+# The encoder-decoder (Whisper): no engine serves it (both packages' engines
+# build batches without frames), so its parity runs lm.forward_prefill and
+# lm.forward_decode directly, JAX's jitted
+# ---------------------------------------------------------------------------
+
+_jax_prefill = jax.jit(jlm.forward_prefill, static_argnums=2)
+_jax_decode = jax.jit(jlm.forward_decode, static_argnums=2)
+
+
+def whisper_inputs(vocab, d_model, B, T_enc, T, seed=0):
+    """Seeded f32 frames (B, T_enc, d_model), rounded to bf16 by each
+    package alike, and decoder tokens (B, T) in [1, vocab)."""
+    rng = np.random.RandomState(seed)
+    frames = rng.randn(B, T_enc, d_model).astype(np.float32)
+    return frames, rng.randint(1, vocab, (B, T))
+
+
+def run_whisper(jcfg, tcfg, jp, tp, frames, toks, prompt, S_max,
+                kv_int8=False):
+    """Both packages' ``forward_prefill`` over ``frames`` and the first
+    ``prompt`` tokens, then one ``forward_decode`` per remaining token.
+    ``jp``/``tp`` are unboxed trees (float or compiled).  Returns per call
+    (JAX last-position logits, the port's), numpy f32, and both final
+    caches."""
+    B, T_enc = frames.shape[:2]
+    jc = jnn.unbox(jlm.cache_init(jcfg, B, S_max, S_enc=T_enc,
+                                  kv_dtype=jnp.int8 if kv_int8 else None))
+    tc = tnn.unbox(tlm.cache_init(tcfg, B, S_max, S_enc=T_enc,
+                                  kv_dtype=torch.int8 if kv_int8 else None))
+    jb = {"frames": jnp.asarray(frames).astype(jnp.bfloat16),
+          "tokens": jnp.asarray(toks[:, :prompt])}
+    tb = {"frames": torch.from_numpy(frames).to(torch.bfloat16),
+          "tokens": torch.from_numpy(toks[:, :prompt])}
+    calls = []
+    for t in range(prompt, toks.shape[1] + 1):
+        if t == prompt:
+            jl, jc = _jax_prefill(jp, jb, jcfg, jc)
+            with torch.no_grad():
+                tl, tc = tlm.forward_prefill(tp, tb, tcfg, tc)
+        else:
+            tok = toks[:, t - 1:t]
+            jl, jc = _jax_decode(jp, {"token": jnp.asarray(tok)}, jcfg, jc)
+            with torch.no_grad():
+                tl, tc = tlm.forward_decode(
+                    tp, {"token": torch.from_numpy(tok)}, tcfg, tc)
+        calls.append((to_np(jl[:, -1]), tl[:, -1].float().numpy()))
+    return calls, jc, tc
+
+
 def to_np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
         if getattr(x, "dtype", None) == jnp.bfloat16 else np.asarray(x)
@@ -337,6 +387,123 @@ class LMParity:
         equal."""
         check_run(served(mode), len(self.PROMPTS), self.MAX_NEW,
                   self.BOUND[mode], (self.ARCH, mode))
+
+
+class WhisperParity:
+    """The parity tests of the encoder-decoder at ``reduced()``, its
+    prefill and decode steps against JAX's jitted ones (``run_whisper``).
+    A subclass sets ``RUNS``, the (mode, int8 KV cache) pairs its
+    prefill/decode test runs, and ``BYTES``, the compiled modes whose
+    bytes it holds to JAX's (the modes split over two files to keep each
+    file's time down).  Bounds: the untied heads' (``UNTIED_BOUNDS``)."""
+
+    ARCH = "whisper_small"
+    B, T_ENC, PROMPT, STEPS = 2, 24, 8, 4
+    RUNS = ()
+    BYTES = ()
+
+    def pytest_generate_tests(self, metafunc):
+        if "run" in metafunc.fixturenames:
+            metafunc.parametrize("run", self.RUNS, ids=[
+                mode + ("-kv_int8" if kv else "") for mode, kv in self.RUNS])
+        if "mode" in metafunc.fixturenames:
+            metafunc.parametrize("mode", self.BYTES)
+
+    @pytest.fixture(scope="class", autouse=True)
+    def _jnp_lowering_one_torch_thread(self):
+        """The JAX side runs its jnp lowering; torch runs one thread
+        beside XLA's pool (the two pools oversubscribe the cores)."""
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("REPRO_PALLAS", "jnp")
+                yield
+        finally:
+            torch.set_num_threads(threads)
+
+    @pytest.fixture(scope="class")
+    def setup(self):
+        """(JAX config, port config, JAX boxed tree, port boxed tree):
+        JAX initialises, the port takes the f32 leaves through numpy."""
+        jcfg = jget_config(self.ARCH).reduced()
+        tcfg = tget_config(self.ARCH).reduced()
+        jt = jax.jit(jlm.init, static_argnums=1)(jax.random.PRNGKey(0),
+                                                 jcfg)
+        return jcfg, tcfg, jt, tnn.params_from_numpy(jt)
+
+    @pytest.fixture(scope="class")
+    def boxed(self, setup):
+        """mode -> (JAX boxed tree, port boxed tree): the float trees for
+        ``dense``, else each package's own compile (once per mode)."""
+        _, _, jt, tt = setup
+        out = {"dense": (jt, tt)}
+
+        def get(mode):
+            if mode not in out:
+                out[mode] = (jcl.compile_params(jt, mode=mode),
+                             tcl.compile_params(tt, mode=mode))
+            return out[mode]
+        return get
+
+    @pytest.fixture(scope="class")
+    def inputs(self, setup):
+        cfg = setup[0]
+        return whisper_inputs(cfg.vocab, cfg.d_model, self.B, self.T_ENC,
+                              self.PROMPT + self.STEPS)
+
+    def test_compiled_bytes_equal_jax(self, boxed, mode):
+        """Every compiled leaf, the stacked encoder and decoder leaves
+        with the cross-attention's included, is JAX's bytes under JAX's
+        axes."""
+        jf, tf = (flat(t) for flat, t in zip((flat_jax, flat_port),
+                                             boxed(mode)))
+        assert jf.keys() == tf.keys()
+        for k, jp in jf.items():
+            assert tf[k].axes == jp.axes, k
+            a, b = np.asarray(jp.value), tf[k].value.numpy()
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        linears = {k.rsplit("[", 1)[0] for k in jf
+                   if k.startswith(("['enc_blocks']", "['dec_blocks']"))
+                   and k.endswith(("['values']", "['codes']"))}
+        # 7 linears per encoder block; 11 per decoder block (self and
+        # cross q, k, v, o, the FFN's 3)
+        assert len(linears) == 7 + 11, sorted(linears)
+
+    def test_prefill_and_decode_match_jitted_jax(self, setup, boxed, inputs,
+                                                 run):
+        """The prefill (the encoder, the cross caches, the prompt) and
+        ``STEPS`` decode steps against JAX's jitted ones, every call
+        within the untied bound of its mode; with the int8 KV cache the
+        decoder's self caches hold int8 codes and the cross caches stay
+        bf16 in both packages."""
+        mode, kv_int8 = run
+        jcfg, tcfg, _, _ = setup
+        frames, toks = inputs
+        jt, tt = boxed(mode)
+        calls, jc, tc = run_whisper(jcfg, tcfg, jnn.unbox(jt),
+                                    tnn.unbox(tt), frames, toks,
+                                    self.PROMPT, tcfg.dec_len,
+                                    kv_int8=kv_int8)
+        assert len(calls) == self.STEPS + 1
+        worst = 0.0
+        for jl, tl in calls:
+            assert np.isfinite(jl).all() and np.isfinite(tl).all()
+            worst = max(worst, float(np.abs(jl - tl).max()))
+        print(f"{self.ARCH}/{mode} kv_int8={kv_int8}: max|dlogit| "
+              f"{worst:.4g}")
+        assert worst <= UNTIED_BOUNDS[mode], worst
+        assert tc["dec"]["k"].dtype == (torch.int8 if kv_int8
+                                        else torch.bfloat16)
+        assert jc["dec"]["k"].dtype == (jnp.int8 if kv_int8
+                                        else jnp.bfloat16)
+        assert tc["cross"]["k"].dtype == torch.bfloat16
+        assert jc["cross"]["k"].dtype == jnp.bfloat16
+        assert tuple(tc["cross"]["k"].shape) == jc["cross"]["k"].shape == (
+            tcfg.n_layers, self.B, self.T_ENC, tcfg.n_kv_heads,
+            tcfg.head_dim)
+        assert tc["pos"].tolist() == [self.PROMPT + self.STEPS] * self.B
 
 
 # JAX's margin at a token whose picks the port, on JAX's routing so far,

@@ -119,6 +119,47 @@ def test_plain_non_causal_long_keys_matches_oracle(dtype):
            against_jnp=False)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (2, 2, 1, 48, 24, 32, 32),     # a decoder longer than its clip
+    (1, 2, 3, 77, 40, 16, 8),      # ragged, G = 3, Dv != D
+])
+def test_plain_non_causal_queries_past_keys_match_jax(shape, dtype):
+    """Non-causal with no window, every query sees every key, so Tq > Tk
+    is a shape like any other (the encoder-decoder's cross-attention over
+    a clip with fewer frames than the decoder has tokens): the plain
+    version against both JAX functions, as the kernels take it on the
+    card (tests/test_torch_kernels_cuda.py)."""
+    _check(shape, False, None, dtype, seed=sum(shape))
+
+
+_jnp_flash_chunked = jax.jit(jattn.flash_attention,
+                             static_argnames=("causal", "kv_chunk"))
+
+
+def test_jnp_lowering_counts_its_zero_key_pad_past_one_chunk():
+    """Records a fact about the reference at Whisper's lengths: at T_enc
+    = 1100 frames (reduced widths: 4 heads of 32), non-causal, the port's
+    plain version equals JAX's jnp flash read in one 1100-key chunk, and
+    differs from JAX's default 1024-key chunks, which pad 948 zero keys
+    that no mask hides and every softmax then counts.  So the CPU parity
+    tests keep T_enc <= 1024, where JAX's chunk is the whole key axis,
+    and the card holds Whisper's 1500 frames against the port's own plain
+    forward."""
+    q, k, v = _inputs(1, 4, 1, 1100, 1100, 32, 32, seed=1100)
+    got = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                    causal=False).numpy()
+    one_chunk = np.asarray(_jnp_flash_chunked(
+        *map(jnp.asarray, (q, k, v)), causal=False, kv_chunk=1100))
+    default = np.asarray(_jnp_flash_chunked(
+        *map(jnp.asarray, (q, k, v)), causal=False, kv_chunk=1024))
+    atol, rtol = TOL["float32"]
+    np.testing.assert_allclose(got, one_chunk, rtol=rtol, atol=atol)
+    # the 948 pad keys add exp(0 - m) each to every row's denominator
+    assert float(np.abs(got - default).max()) > 100 * atol
+    assert float(np.abs(default).mean()) < float(np.abs(got).mean())
+
+
 def test_ref_matches_jax_ref():
     rng = np.random.RandomState(5)
     q = rng.randn(1, 3, 24, 16).astype(np.float32)

@@ -40,6 +40,18 @@ from repro_torch.kernels._cuda import CSRC
 from repro_torch.kernels.bitmap import expand_bitmap_tile
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch runs one thread: beside the other processes of a parallel
+    test run, its own pool oversubscribes the cores and slows these
+    replays many times over (tests/test_torch_lm_dense.py: 452 s at 8
+    threads against 11.4 s at one, six runs at once)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("dtype,D,Dv,want", [
     (torch.bfloat16, 64, 64, "mma"),       # SmolLM-360M prefill
     (torch.bfloat16, 16, 16, "mma"),

@@ -53,7 +53,13 @@ flash-attention backward kernels against their plain version at
 chip_smoke.py's shapes (the training shapes of SmolLM-360M and Gemma3-1B,
 the served ones) and ragged ones, in f32 and bf16, the same bits on a
 second run, the forward's log-sum-exp, and ``ops.flash_attention`` under
-autograd launching one forward and one backward.
+autograd launching one forward and one backward.  Whisper-small's shapes:
+flash forward and backward at its encoder (1500 frames, non-causal),
+cross-attention (prompt, decode step, training) and decoder shapes and
+at Tq > Tk (non-causal only, refused causal or windowed),
+``cfmm_matmul`` and ``sparse_matvec`` at its linears and head (4, 16 and
+6000 rows), and its prefill and decode steps at ``reduced()`` on the card
+against the CPU in three modes.
 """
 import pytest
 import torch
@@ -1399,3 +1405,157 @@ def test_dense_engine_on_the_card_matches_the_cpu(dev, arch):
             batch["length"] = torch.tensor([37], dtype=torch.int32)
         return lm.forward_prefill(card, batch, cfg, cache)[0].float()
     assert float((prefill(64) - prefill(37)).abs().max()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# Whisper-small's served and trained shapes: 12 heads of 64 (G = 1), 1500
+# frames a clip (no multiple of the 64-key tile), non-causal encoder and
+# cross-attention, one query row against 1500 keys in a decode step, and
+# queries past the keys (a decoder longer than its clip)
+# ---------------------------------------------------------------------------
+
+WHISPER_FLASH_SHAPES = [
+    # (B, KVH, G, Tq, Tk, causal)
+    (4, 12, 1, 1500, 1500, False),   # encoder self-attention
+    (4, 12, 1, 4, 1500, False),      # cross-attention, a 4-token prompt
+    (4, 12, 1, 1, 1500, False),      # cross-attention, a decode step
+    (4, 12, 1, 4, 4, True),          # decoder self-attention, prefill
+    (2, 12, 1, 448, 1500, False),    # cross-attention, training
+    (2, 12, 1, 448, 448, True),      # decoder self-attention, training
+    (2, 12, 1, 448, 24, False),      # Tq > Tk: 24 frames, 448 tokens
+    (1, 2, 3, 77, 40, False),        # Tq > Tk, ragged, G = 3
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KVH,G,Tq,Tk,causal", WHISPER_FLASH_SHAPES)
+def test_flash_attention_matches_plain_at_whisper_shapes(
+        dev, B, KVH, G, Tq, Tk, causal, dtype):
+    q, k, v = _flash_inputs(B, KVH, G, Tq, Tk, 64, 64, dtype, dev,
+                            seed=Tq + Tk)
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v, causal)
+    want = flash_attention.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    err = (got.float() - want.float()).abs()
+    tol = FLASH_TOL[dtype] + (want.float().abs() * 2.0 ** -7
+                              if dtype == torch.bfloat16 else 0.0)
+    assert bool(torch.isfinite(got).all()) and bool((err <= tol).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KVH,G,Tq,Tk,causal", [
+    s for s in WHISPER_FLASH_SHAPES if s[0] <= 2 or s[3] == 1500])
+def test_flash_attention_bwd_matches_plain_at_whisper_shapes(
+        dev, B, KVH, G, Tq, Tk, causal, dtype):
+    B = min(B, 2)
+    q, k, v = _flash_inputs(B, KVH, G, Tq, Tk, 64, 64, dtype, dev,
+                            seed=Tq + Tk)
+    do = torch.randn((B, KVH, G, Tq, 64),
+                     generator=torch.Generator().manual_seed(2)).to(
+                         dtype).to(dev)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, causal)
+    got = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                     causal)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs()
+        assert bool(torch.isfinite(a).all())
+        assert bool((err <= atol + rtol * b.float().abs()).all()), \
+            float(err.max())
+
+
+def test_flash_attention_takes_queries_past_keys_only_non_causal(dev):
+    """Tq > Tk runs non-causal with no window (every query sees every
+    key); causal or windowed it has no queries-at-the-end layout and is
+    refused, forward and backward alike."""
+    q, k, v = _flash_inputs(1, 2, 1, 9, 8, 64, 64, torch.bfloat16, dev)
+    flash_attention.flash_attention(q, k, v, False)
+    for causal, window in ((True, None), (False, 4)):
+        with pytest.raises(ValueError, match="Tq <= Tk"):
+            flash_attention.flash_attention(q, k, v, causal, window)
+        with pytest.raises(ValueError, match="Tq <= Tk"):
+            flash_attention.flash_attention_bwd(q, k, v, q, q, q[..., 0]
+                                                .float(), causal, window)
+
+
+# (K, N) of Whisper-small's linears: q/k/v/o and the cross-attention's,
+# gate/up, down, the untied 768 x 51865 head
+WHISPER_LINEARS = [(768, 768), (768, 3072), (3072, 768), (768, 51865)]
+
+
+@pytest.mark.parametrize("K,N", WHISPER_LINEARS)
+@pytest.mark.parametrize("M", [4, 16, 6000])
+def test_cfmm_matmul_matches_plain_at_whisper_shapes(dev, M, K, N):
+    """``int8``: the decode slots (4), a 4-token prompt of 4 clips (16)
+    and the encoder's 4 x 1500 frames (6000 rows)."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    codes = torch.randint(-63, 64, (K, N), generator=g, dtype=torch.int8)
+    x, codes = x.to(dev), codes.to(dev)
+    out = cfmm_matmul.cfmm_matmul(x, codes)
+    torch.cuda.synchronize()
+    assert torch.equal(out, cfmm_matmul.cfmm_matmul_plain(x, codes))
+
+
+@pytest.mark.parametrize("K,N", WHISPER_LINEARS)
+@pytest.mark.parametrize("M", [4, 16, 6000])
+def test_sparse_matvec_matches_plain_at_whisper_shapes(dev, M, K, N):
+    """``sparse_cfmm`` at the same rows."""
+    g = torch.Generator().manual_seed(M + K + N)
+    packed = _compile_leaf_2d(torch.randn((K, N), generator=g),
+                              "sparse_cfmm", 0.8)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    x, bm, vals = (t.to(dev).contiguous() for t in
+                   (x, packed["bitmap"], packed["values"]))
+    got = sparse_matvec.sparse_matvec(x, bm, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.sparse_matvec_ref(x, bm, vals))
+
+
+@pytest.mark.parametrize("mode", ["dense", "int8", "sparse_cfmm"])
+def test_whisper_on_the_card_matches_the_cpu(dev, mode):
+    """Whisper at ``reduced()`` over 40 frames: a prefill of 8 tokens and
+    four decode steps on the card (the flash kernel, one query row in the
+    cross-attention's steps; the linears' kernels) against the CPU's plain
+    versions, within the untied bounds of the CPU-vs-JAX parity
+    (tests/_torch_lm_parity.py: ``dense`` 0.06, compiled 0.25)."""
+    from repro_torch import nn
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.compiled_linear import ensure_compiled
+    from repro_torch.models import lm
+    cfg = get_config("whisper_small").reduced()
+    bound = 0.06 if mode == "dense" else 0.25
+    tree = ensure_compiled(lm.init(torch.Generator().manual_seed(0), cfg),
+                           mode, 0.8)
+    g = torch.Generator().manual_seed(3)
+    frames = torch.randn((2, 40, cfg.d_model), generator=g).to(
+        torch.bfloat16)
+    toks = torch.randint(1, cfg.vocab, (2, 12), generator=g)
+    logits = {}
+    for device in ("cpu", "cuda"):
+        params = nn.unbox(nn.to_device(tree, device))
+        cache = nn.unbox(lm.cache_init(cfg, 2, 16, S_enc=40, device=device))
+        before = flash_attention.KERNEL.launches
+        out, cache = lm.forward_prefill(
+            params, {"frames": frames.to(device),
+                     "tokens": toks[:, :8].to(device)}, cfg, cache)
+        seen = [out[:, -1].float().cpu()]
+        for t in range(8, 12):
+            out, cache = lm.forward_decode(
+                params, {"token": toks[:, t:t + 1].to(device)}, cfg, cache)
+            seen.append(out[:, -1].float().cpu())
+        launched = flash_attention.KERNEL.launches - before
+        logits[device] = seen
+    # per prefill: 2 encoder, 2 decoder self and 2 cross layers; per
+    # step: the 2 cross layers (decode's self-attention is plain)
+    assert launched == 6 + 4 * 2
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert bool(torch.isfinite(b).all())
+        assert float((a - b).abs().max()) <= bound

@@ -11,11 +11,12 @@
   prefill equals the unpadded one bit for bit in ``dense``: logits,
   ``pos``, the length counters and the KV rows below the length (a
   recurrent stack's states differ).
-* ``tests/test_decode.py`` for the port's eight configs at ``reduced()``
-  (OLMoE's and DeepSeek's MoE at JAX's loose capacity, as there): a
-  prefill and four decode steps against ``forward_train`` of the whole
-  sequence, within 0.06 of max |logit| and greedy tokens equal wherever
-  the full forward's margin exceeds 0.05 of it.
+* ``tests/test_decode.py`` for every config at ``reduced()`` (OLMoE's
+  and DeepSeek's MoE at JAX's loose capacity, and Whisper over 24
+  frames of an ``S_enc = 24`` cross cache, as there): a prefill and four
+  decode steps against ``forward_train`` of the whole sequence, within
+  0.06 of max |logit| and greedy tokens equal wherever the full
+  forward's margin exceeds 0.05 of it.
 * ``nn.vmap_init`` fills its preallocated stacks with the values the
   list-then-``torch.stack`` version gave, bit for bit.
 """
@@ -30,6 +31,23 @@ from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.launch.serve import build_cfg
 from repro_torch.models import lm, moe
 from repro_torch.serving.engine import Request, ServingEngine
+
+# the configs the engine serves: all but the encoder-decoder, whose
+# requests would need frames (lm.forward_prefill serves it)
+ENGINE_IDS = tuple(a for a in ARCH_IDS
+                   if not get_config(a).encoder_decoder)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Torch runs one thread: beside the other processes of a parallel
+    test run, its own pool oversubscribes the cores (this file, 40 tests,
+    took 452 s in each of six concurrent runs at 8 threads and 11.4 s at
+    one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -246,7 +264,7 @@ def _loose_capacity(monkeypatch):
         moe.moe_forward, capacity_factor=16.0))
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ENGINE_IDS)
 def test_dense_bucketed_prefill_bit_exact(reduced, arch, monkeypatch):
     """In ``dense`` nothing couples a row to the pad rows (no shared
     activation scale), and causal attention hides them: the bucketed
@@ -293,24 +311,29 @@ def test_dense_bucketed_prefill_bit_exact(reduced, arch, monkeypatch):
 def test_decode_matches_full_forward(reduced, arch, monkeypatch):
     """JAX ``test_decode.py`` in the port: prefill T - 4 tokens, decode
     four, against ``forward_train`` of all T, MoE at JAX's loose
-    capacity; aux is a dense stack's zeros, and an MoE stack drops no
-    pick."""
+    capacity, an encoder-decoder over the same 24 frames throughout; aux
+    is a dense stack's zeros, and an MoE stack drops no pick."""
     _loose_capacity(monkeypatch)
     cfg, params = reduced(arch)
     B, T = 2, 16
     toks = torch.from_numpy(np.random.RandomState(0).randint(
         1, cfg.vocab, (B, T)))
-    full, aux = lm.forward_train(params, {"tokens": toks, "labels": toks},
-                                 cfg)
+    kw, cache_kw = {}, {}
+    if cfg.encoder_decoder:
+        kw["frames"] = torch.from_numpy(np.random.RandomState(1).randn(
+            B, 24, cfg.d_model).astype(np.float32)).to(torch.bfloat16)
+        cache_kw["S_enc"] = 24
+    full, aux = lm.forward_train(params, {**kw, "tokens": toks,
+                                          "labels": toks}, cfg)
     assert full.shape == (B, T, cfg.vocab) and full.dtype == torch.bfloat16
     if cfg.moe is None:
         assert aux == {"lb_loss": 0.0, "z_loss": 0.0, "dropped_frac": 0.0}
     else:
         assert float(aux["dropped_frac"]) == 0.0
         assert float(aux["lb_loss"]) > 0 and float(aux["z_loss"]) > 0
-    cache = nn.unbox(lm.cache_init(cfg, B, 32))
-    lg, cache = lm.forward_prefill(params, {"tokens": toks[:, :T - 4]}, cfg,
-                                   cache)
+    cache = nn.unbox(lm.cache_init(cfg, B, 32, **cache_kw))
+    lg, cache = lm.forward_prefill(params, {**kw, "tokens": toks[:, :T - 4]},
+                                   cfg, cache)
     outs = [lg]
     for t in range(T - 4, T):
         lg, cache = lm.forward_decode(params, {"token": toks[:, t:t + 1]},

@@ -8,7 +8,6 @@
   a kernel, so every launch counter stays 0 and no kernel library loads.
 """
 import ast
-import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -182,20 +181,32 @@ def test_cpu_block_sparse_matmul_never_reaches_a_kernel(monkeypatch, dtype):
 
 
 def test_lm_config_and_unported_parts_raise():
-    """SmolLM-360M's published shape; parts of the LM stack the port does
-    not have yet raise and name the queue that holds them."""
+    """SmolLM-360M's published shape; the encoder-decoder builds, inits,
+    caches and trains (with QAT) in the port, and the serving engine, which
+    takes no frames (as JAX's), refuses it by name."""
     cfg = smollm_360m.CONFIG
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab) == (32, 960, 15, 5, 64,
                                                    2560, 49152)
     assert cfg.tie_embeddings and cfg.reduced().n_kv_heads == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        serve.build_cfg("whisper_small", "tiny")
-    # forward_train(qat=True) runs since the training slice (checked in
-    # tests/test_torch_lm_dense.py); the encoder-decoder still raises
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        lm.forward_train({}, {}, dataclasses.replace(
-            cfg, encoder_decoder=True), qat=True)
+    wcfg = serve.build_cfg("whisper_small", "tiny")
+    assert wcfg.encoder_decoder and (wcfg.n_enc_layers, wcfg.n_layers,
+                                     wcfg.dec_len) == (2, 2, 32)
+    params = lm.init(torch.Generator().manual_seed(0), wcfg)
+    assert {"enc_blocks", "enc_norm", "dec_blocks"} <= set(params)
+    with pytest.raises(ValueError, match="takes no encoder frames"):
+        ServingEngine(wcfg, params, mode="int8", device="cpu")
+    frames = torch.zeros((1, 12, wcfg.d_model), dtype=torch.bfloat16)
+    toks = torch.arange(1, 6)[None]
+    with torch.no_grad():
+        logits, _ = lm.forward_train(nn.unbox(params), {
+            "frames": frames, "tokens": toks}, wcfg, qat=True)
+    assert logits.shape == (1, 5, wcfg.vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+    wcache = nn.unbox(lm.cache_init(wcfg, 1, 8, S_enc=12,
+                                    kv_dtype=torch.int8))
+    assert wcache["dec"]["k"].dtype == torch.int8
+    assert wcache["cross"]["k"].dtype == torch.bfloat16
     # the int8 KV cache is ported: codes and per-(token, head) bf16 scales
     cache = nn.unbox(lm.cache_init(serve.build_cfg("smollm_360m", "tiny"),
                                    1, 8, kv_dtype=torch.int8))
