@@ -116,16 +116,18 @@
    engine alive at a time) through the LM ``ServingEngine``: SmolLM-360M
    in ``int8``, ``sparse_cfmm`` and ``dense`` (8 requests of 37-1000
    prompt tokens, 8 new tokens each), Gemma3-1B in ``dense``, ``int8``
-   and ``sparse_cfmm``, StableLM-3B and Phi-3-medium-14B in ``dense`` and
+   and ``sparse_cfmm``, StableLM-3B and Phi-3-medium-14B (published
+   widths, 20 of Phi-3's 40 layers) in ``dense`` and
    ``int8`` (4 requests of 37-1000 tokens, 8 new tokens each), the MoE
    OLMoE-1B-7B in ``dense`` at its 16 layers and in ``int8`` and
    ``sparse_cfmm`` at 8 of them, and the MLA +
    MoE DeepSeek-V2-Lite-16B (published widths; its dense first layer,
    64 routed experts top-6 beside 2 shared) in ``dense`` at its published
-   depth of 27 layers and in ``int8`` at 8 (2 requests of 37 and 777
-   tokens, 2 new tokens each: one decode step), the recurrent RWKV6-7B (published widths and depth) on
-   the dense configs' traffic and Jamba-v0.1 (published widths, one
-   period of 8 of its 32 layers: Mamba, attention, 16 experts top-2) on
+   depth of 27 layers and in ``int8`` at 4 (2 requests of 37 and 777
+   tokens, 2 new tokens each: one decode step), the recurrent RWKV6-7B
+   (published widths and depth) on the dense configs'
+   traffic and Jamba-v0.1 (published widths, one period of 8 of its 32
+   layers: Mamba, attention, 16 experts top-2) on
    OLMoE's, in ``dense`` and ``int8``, and Qwen2-VL-7B (M-RoPE, published
    widths and depth: 28 layers, 28 heads over 4 KV heads) on the dense
    configs' traffic in ``dense`` and ``int8``, 4 slots.
@@ -135,8 +137,8 @@
    dense layer, 4 + 3 per expert in an MoE layer, and the untied head;
    MLA's 5 in a prefill and 3 in a decode step, whose absorbed path
    takes k_up and v_up as dense weights: 5209 and 5155 per DeepSeek
-   forward at 27 layers, 1409 and 1393 at 8; 4 per Mamba mixer, 11 per RWKV layer: 353 per RWKV6
-   forward, 237 per Jamba period), the
+   forward at 27 layers, 609 and 601 at 4; 4 per Mamba mixer, 11 per
+   RWKV layer: 353 per RWKV6 forward, 237 per Jamba period), the
    first prefills' logits against the CPU's plain forward of the same
    tree (SmolLM two, Gemma3 one; the others are too large for a CPU
    forward in the time), and the logits and greedy tokens against a card
@@ -209,6 +211,24 @@
 5. runs the seven example ports (``examples/torch_*.py``) from ``main``
    on the card at their default flags: each one's own checks and "OK"
    line, and the launch counters of the kernels on its path;
+5b. distribution and the dry run (``dist_phase``, ``[dist]``): (a) a
+   world-1 NCCL process group (a ``file://`` store in a temporary
+   directory) and its 1 x 1 ("data", "model") ``DeviceMesh``:
+   ``param_shardings`` over SmolLM-360M's full-width ``int8`` serve tree
+   (on the meta device) gives ``Replicate()`` on every leaf, and
+   ``distribute_params`` of the MoE layer below gives it back to the bit;
+   (b) ``a2a_expert_exchange`` (``all_to_all_single`` over NCCL) of one
+   MoE layer at OLMoE-1B-7B's published widths (d 2048, 64 experts of
+   d_ff 1024, top-8; seeded f32 weights on the card), 256 tokens at a
+   capacity where no pick drops, its experts compiled in ``int8``
+   (``cfmm_matmul``, 3 launches an expert over the ep * cap received
+   slots) and ``sparse_cfmm`` (``sparse_matvec``), against
+   ``moe_forward``'s expert path on the same picks and gates and against
+   the same exchange with the plain versions substituted, within
+   ``DIST_BOUND``; (c) one dry-run cell through the entry point, ``python
+   -m repro_torch.launch.dryrun --arch olmoe_1b_7b --shape decode_32k
+   --mesh single``, its line printed (an analytic projection on H100
+   SXM constants, not a measurement);
 6. prints the ``kernels`` JSON line, then ``{"ok": true, ...}`` last.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
@@ -221,6 +241,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -235,10 +256,10 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate, op/s
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate, flop/s
-PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores, flop/s
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3, bytes/s
+# the H100 SXM's peaks, kept in one place
+from repro_torch.roofline.analysis import (HBM_BW, PEAK_BF16,  # noqa: E402
+                                           PEAK_F32, PEAK_INT8)
+
 TIMING_REPS = 25
 SERVE_REPS = 5
 
@@ -334,8 +355,8 @@ def popcount(bitmap: torch.Tensor) -> int:
     return sum(int(((bitmap >> j) & 1).sum()) for j in range(8))
 
 
-def bound_ms(ops: float, nbytes: float, peak=PEAK_INT8_OPS) -> tuple:
-    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+def bound_ms(ops: float, nbytes: float, peak=PEAK_INT8) -> tuple:
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -962,8 +983,8 @@ def check_flash(spec, dtype, dev, gen):
                                                           window),
                          per_graph=2)
     flops, nbytes = flash_work(q, k, v, causal, window)
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS
-                          if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16
+                          if dtype == torch.bfloat16 else PEAK_F32)
     qs = q.reshape(B, KVH * G, Tq, D)
     mask = (None if window is None and Tq == Tk else
             fa.position_mask(Tq, Tk, causal, window, q.device))
@@ -1132,8 +1153,8 @@ def check_flash_bwd(spec, dtype, dev, gen):
     plain_ms = event_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, do, lse, causal, window), reps=3)
     flops, nbytes = flash_bwd_work(q, k, v, causal, window)
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS
-                          if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16
+                          if dtype == torch.bfloat16 else PEAK_F32)
     backend, sdpa_bwd = sdpa_backward(q, k, v, do, causal, window)
     library_ms = event_ms(sdpa_bwd)
     device_ms = profiled_ms(lambda: fa.flash_attention_bwd(
@@ -1235,8 +1256,8 @@ def check_block_sparse(label, x, w, block, dev):
               + M * p.n_blocks_n * bn) * elt + 16 * p.n_active \
         + 4 * (p.n_blocks_n + 1)
     b_ms, b_by = bound_ms(2.0 * M * p.n_active * bk * bn, nbytes,
-                          PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                          else PEAK_F32_FLOPS)
+                          PEAK_BF16 if dtype == torch.bfloat16
+                          else PEAK_F32)
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     shape = f"{label} M={M} K={K} N={w.shape[1]} block={bk}x{bn} {dt}"
     bplan = block_sparse.plan(M, block, p.n_blocks_n, p.n_active, dtype)
@@ -1921,8 +1942,12 @@ LM_PATHS = [
     ("gemma3_1b", ("dense", "int8", "sparse_cfmm"), DENSE_LM_PROMPTS,
      DENSE_LM_NEW, 1),
     ("stablelm_3b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
-    # f32 weights are 58.6 GB: too large for a CPU forward in the time
-    ("phi3_medium_14b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
+    # f32 weights are 58.6 GB: too large for a CPU forward in the time;
+    # 20 of its 40 layers since the distribution phase joined (27-44 s):
+    # its path took 80-83 s of 1085-1176 s runs at 40 (the f32 init, the
+    # compile), 39-43 s at 20
+    ("phi3_medium_14b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0,
+     20),
     # the MoE FFN: f32 weights are 25.8 GiB, too large for a CPU forward
     # in the time
     # `dense` at its published 16 layers, the compiled modes at 8 (1569
@@ -1931,13 +1956,14 @@ LM_PATHS = [
     ("olmoe_1b_7b", ("dense",), OLMOE_PROMPTS, OLMOE_NEW, 0),
     ("olmoe_1b_7b", ("int8", "sparse_cfmm"), OLMOE_PROMPTS, OLMOE_NEW, 0, 8),
     # MLA on the MoE FFN: f32 weights are 58.5 GiB, the int8 tree 14.6 GiB.
-    # `dense` at the published depth (27 layers); `int8` at 8 (the dense
-    # first layer and 7 MoE layers): its checks, host-bound (~276k
+    # `dense` at the published depth (27 layers); `int8` at 4 (the dense
+    # first layer and 3 MoE layers): its checks, host-bound (~276k
     # launches a profiled run), took 152 s of a 1041 s run at 27 layers
     # once the training phases joined, 61.1 s of a 970.9 s run at 14 once
-    # Whisper-small's path joined
+    # Whisper-small's path joined, 40-44 s at 8 and 15-23 s at 4 once the
+    # distribution phase joined
     ("deepseek_v2_lite_16b", ("dense",), OLMOE_PROMPTS, OLMOE_NEW, 0),
-    ("deepseek_v2_lite_16b", ("int8",), OLMOE_PROMPTS, OLMOE_NEW, 0, 8),
+    ("deepseek_v2_lite_16b", ("int8",), OLMOE_PROMPTS, OLMOE_NEW, 0, 4),
     # RWKV-6: f32 weights 28.2 GiB, at its published depth
     ("rwkv6_7b", ("dense", "int8"), DENSE_LM_PROMPTS, DENSE_LM_NEW, 0),
     # Jamba: 192.1 GiB of f32 weights at 32 layers; one period of 8 layers
@@ -4082,6 +4108,164 @@ def examples_phase(kernels):
     return out
 
 
+DIST_ARCH = "olmoe_1b_7b"
+DIST_TOKENS = 256
+# no pick drops: the exchange's bins hold T * K / E * cf * E_loc = 2048
+# slots at ep 1 (every pick); moe_forward's queues hold all 256 tokens
+DIST_A2A_CF = 1.0
+DIST_MOE_CF = LOOSE_CAPACITY
+DIST_MODES = ("int8", "sparse_cfmm")
+# the exchange against moe_forward and against its plain versions: the
+# same int8 codes reach each expert (one activation scale an expert:
+# the other slots are zero rows), the int32 products are exact, and a
+# token's K terms add in choice order
+DIST_BOUND = 0.0
+
+
+def dist_phase(kernels, card):
+    """Distribution on one card (section 5b of the docstring): the NCCL
+    group and spec check (a), the MoE exchange at OLMoE-1B-7B's widths
+    (b), one dry-run cell through its entry point (c)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import nn
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.compiled_linear import compile_params
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.moe_a2a import (a2a_expert_exchange,
+                                                 capacity)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm, moe
+    from repro_torch.models.layers import ffn
+    from torch.distributed.tensor import Replicate
+
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh((1, 1))
+            check(mesh.device_type == "cuda"
+                  and dist.get_backend() == "nccl", f"[dist] mesh {mesh}")
+            # (a) every leaf of a full-width serve tree replicates
+            scfg = get_config("smollm_360m")
+            stree = compile_params(lm.init(nn.SHAPE_ONLY, scfg), "int8")
+            specs = [sp for sp in nn.tree_leaves(
+                shd.param_shardings(stree, mesh, shd.SERVE_RULES),
+                is_leaf=lambda x: isinstance(x, tuple))
+                if isinstance(sp, tuple)]
+            n_leaves = sum(isinstance(p, nn.Param) for p in nn.tree_leaves(
+                stree, is_leaf=lambda x: isinstance(x, nn.Param)))
+            check(len(specs) == n_leaves and all(
+                shd.placements_of(sp, mesh) == [Replicate(), Replicate()]
+                for sp in specs),
+                f"[dist] (a) {len(specs)} of {n_leaves} leaves replicate")
+            print(f"[dist] (a) {card}: {dist.get_backend()} world 1, "
+                  f"mesh 1 x 1 (data, model); SmolLM-360M int8 serve tree: "
+                  f"{n_leaves} leaves, every one Replicate()", flush=True)
+
+            # (b) one MoE layer at OLMoE-1B-7B's published widths
+            cfg = get_config(DIST_ARCH)
+            m = cfg.moe
+            check((cfg.d_model, m.n_experts, m.d_ff_expert, m.top_k)
+                  == (2048, 64, 1024, 8), f"[dist] {DIST_ARCH} widths")
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            layer = moe.moe_init(gen, cfg)
+            put = shd.distribute_params(layer, mesh)
+            same = all(torch.equal(a.value.full_tensor(), b.value)
+                       for a, b in zip(
+                           nn.tree_leaves(put, is_leaf=lambda x:
+                                          isinstance(x, nn.Param)),
+                           nn.tree_leaves(layer, is_leaf=lambda x:
+                                          isinstance(x, nn.Param))))
+            check(same, "[dist] (a) distribute_params round trip")
+            del put
+            x = torch.randn((1, DIST_TOKENS, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            xt = x.reshape(-1, cfg.d_model)
+            for mode in DIST_MODES:
+                linear = LM_LINEAR[mode]
+                p = nn.unbox(compile_params(layer, mode))
+                r = moe.route(xt, p["router"], m.top_k, DIST_MOE_CF)
+                check(bool(r.keep.all()), f"[dist] {mode}: picks dropped")
+                experts = nn.unstack(p["experts"], m.n_experts)
+
+                def apply(x_e):
+                    return torch.stack([ffn(experts[e], x_e[e], act=m.act)
+                                        for e in range(m.n_experts)])
+
+                def exchange():
+                    return a2a_expert_exchange(
+                        xt, r.expert_idx, r.gate_vals, apply, m.n_experts,
+                        mesh, capacity_factor=DIST_A2A_CF)
+
+                zero_launches(kernels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = exchange()
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                counts = {k: v.launches for k, v in kernels.items()
+                          if v.launches}
+                check(counts == {linear: 3 * m.n_experts},
+                      f"[dist] {mode}: launches {counts}")
+                ref, _ = moe.moe_forward(p, x, cfg,
+                                         capacity_factor=DIST_MOE_CF)
+                with plain_versions([linear]):
+                    plain = exchange()
+                d_ref = (got.float() - ref.reshape(xt.shape).float()
+                         ).abs().max().item()
+                d_plain = (got.float() - plain.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                cap = capacity(DIST_TOKENS, m.top_k, m.n_experts,
+                               m.n_experts, DIST_A2A_CF)
+                print(f"[dist] (b) {card}: {DIST_ARCH} layer, {mode}: "
+                      f"{DIST_TOKENS} tokens x top-{m.top_k} over "
+                      f"{m.n_experts} experts, ep 1, cap {cap} slots; "
+                      f"exchange {dt:.1f} ms (host clock, first call); "
+                      f"max|d| vs moe_forward {d_ref:.3g}, vs plain "
+                      f"versions {d_plain:.3g} (bound {DIST_BOUND}; "
+                      f"max|y| {scale:.4g}); launches {counts}", flush=True)
+                check(torch.isfinite(got.float()).all().item() and scale > 0,
+                      f"[dist] {mode}: output not finite")
+                check(d_ref <= DIST_BOUND and d_plain <= DIST_BOUND,
+                      f"[dist] {mode}: {d_ref} / {d_plain} > {DIST_BOUND}")
+                out[f"dist/{DIST_ARCH}/{mode}"] = dict(
+                    counts=counts, ms=dt, max_abs_vs_moe_forward=d_ref,
+                    max_abs_vs_plain=d_plain)
+                del p, experts, got, ref, plain
+            del layer
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+    # (c) one dry-run cell through its entry point
+    art = ROOT / "build" / "dryrun" / "single" / \
+        f"{DIST_ARCH}__decode_32k.json"
+    art.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DIST_ARCH, "--shape", "decode_32k", "--mesh", "single"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    dt = time.perf_counter() - t0
+    check(run.returncode == 0, f"[dryrun] exit {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    line = run.stdout.strip().splitlines()[-1]
+    rec = json.loads(line)
+    check(art.exists() and rec["artifact"] == str(art)
+          and not (ROOT / "experiments" / "dryrun").exists(),
+          f"[dryrun] artifact {rec.get('artifact')}")
+    print(f"[dryrun] {line} ({dt:.1f}s; an analytic projection on H100 SXM "
+          f"constants, not a measurement)", flush=True)
+    out["dryrun"] = dict(seconds=dt, **rec)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4205,6 +4389,9 @@ def main() -> int:
     examples = examples_phase(kernels)
     print(f"[time] examples done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
+    dist = dist_phase(kernels, card)
+    print(f"[time] dist phase done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
 
     meta = {
         "conv_implicit": ("src/repro_torch/csrc/conv_implicit.cu",
@@ -4253,6 +4440,8 @@ def main() -> int:
         by_path.update({f"examples/{ex}": v["launches"][name]
                         for ex, v in examples.items()
                         if v["launches"].get(name)})
+        by_path.update({path: v["counts"][name] for path, v in dist.items()
+                        if v.get("counts", {}).get(name)})
         status = (f"built, launched on the served paths, equal to its "
                   f"plain version at {len(shape_rows)} shape(s)")
         zr = zero_rows.get(name)
@@ -4304,6 +4493,7 @@ def main() -> int:
     print(json.dumps({"whisper": whisper}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"examples": examples}), flush=True)
+    print(json.dumps({"dist": dist}), flush=True)
     print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -4,14 +4,18 @@
 Every architecture is a frozen ``ArchConfig`` built in its own module
 (``configs/<id>.py``); ``get_config`` resolves an id to it.  ``reduced()``
 gives the family-preserving small config the CPU tests use.  The dry
-run's ``SHAPES``, ``input_specs`` and ``cell_applicable`` come with the
-launch modules that use them (ROADMAP A8).
+run's cells are ``SHAPES`` (sequence, global batch and step kind) x the
+configs; ``cell_applicable`` says which cells run and ``input_specs``
+gives each cell's inputs as meta tensors (the counterpart of JAX's
+``ShapeDtypeStruct``: shapes and dtypes, no data).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +157,55 @@ def get_config(name: str) -> ArchConfig:
                          f"{ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
+
+
+def all_configs() -> dict:
+    return {n: get_config(n) for n in ARCH_IDS}
+
+
+# ---------------------------------------------------------------------------
+# Shapes: name -> (seq_len, global_batch, step kind)
+# ---------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k": dict(seq=4096, batch=256, step="train"),
+    "prefill_32k": dict(seq=32768, batch=32, step="prefill"),
+    "decode_32k": dict(seq=32768, batch=128, step="decode"),
+    "long_500k": dict(seq=524288, batch=1, step="decode"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape_name: str) -> tuple[bool, str]:
+    """Is (arch x shape) runnable?  (DESIGN.md SS4 skip rules)."""
+    if shape_name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention arch: 500k decode not sub-quadratic"
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
+    """Meta-tensor stand-ins for every model input of a cell: int32
+    tokens and labels, bf16 encoder frames ``(B, S, d_model)``, M-RoPE
+    positions ``(3, B, S)``."""
+    sh = SHAPES[shape_name]
+    B, S = sh["batch"], sh["seq"]
+
+    def spec(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if sh["step"] == "decode":         # one token against a cache of S
+        batch = {"token": spec(B, 1)}
+        if cfg.pos == "mrope":
+            batch["positions"] = spec(3, B, 1)
+        return batch
+    if cfg.encoder_decoder:
+        batch = {"frames": spec(B, S, cfg.d_model, dtype=torch.bfloat16),
+                 "tokens": spec(B, cfg.dec_len)}
+        if sh["step"] == "train":
+            batch["labels"] = spec(B, cfg.dec_len)
+        return batch
+    batch = {"tokens": spec(B, S)}
+    if sh["step"] == "train":
+        batch["labels"] = spec(B, S)
+    if cfg.pos == "mrope":
+        batch["positions"] = spec(3, B, S)
+    return batch

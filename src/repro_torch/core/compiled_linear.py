@@ -101,10 +101,14 @@ def bitmap_pack(codes: torch.Tensor, keep_k: int):
     assert K % 8 == 0, f"K={K} must be divisible by 8"
     mask = codes != 0
     pos = torch.cumsum(mask.to(torch.int64), dim=0) - 1   # rank within col
-    cols = torch.arange(N, device=codes.device).expand(K, N)
     keep = mask & (pos < keep_k)                          # the rest drop
-    values = torch.zeros((keep_k, N), dtype=torch.int8, device=codes.device)
-    values[pos[keep], cols[keep]] = codes[keep]
+    # every entry scatters to its rank's row; zeros and dropped ones to
+    # row keep_k, which is cut off (no boolean indexing: the shapes stay
+    # static, so a meta tensor packs too)
+    rows = torch.where(keep, pos, keep_k)
+    values = torch.zeros((keep_k + 1, N), dtype=torch.int8,
+                         device=codes.device)
+    values = values.scatter_(0, rows, codes)[:keep_k]
     bits = mask.reshape(K // 8, 8, N).to(torch.int32)
     weights = (1 << torch.arange(8, dtype=torch.int32,
                                  device=codes.device)).reshape(1, 8, 1)
@@ -280,6 +284,8 @@ def _compile_leaf(p: nn.Param, mode: str, sparsity: float) -> dict:
             out = {k: torch.empty((len(w2d),) + tuple(v.shape),
                                   dtype=v.dtype, device=v.device)
                    for k, v in one.items()}
+        if w.device.type == "meta":      # no data: one slice gives shapes
+            break
         for k, v in one.items():
             out[k][i].copy_(v)
     out = {k: v.reshape(tuple(w.shape[:-2]) + tuple(v.shape[1:]))

@@ -1,5 +1,5 @@
 """Throughput-balanced multi-chip partitioning — paper SS III / Fig 7 (ports
-``repro/core/partition.py``; the LM partitioner waits for the LM slice).
+``repro/core/partition.py``, the LM partitioner ``partition_lm`` too).
 
 Given a network's layer list and a target throughput, size every layer's
 kernel with the calibrated FPGA model (core.fpga_model.plan_layer), then
@@ -336,3 +336,71 @@ def stage_plans(result: PartitionResult, blocks: list,
             cur.append(j)
         groups.append(tuple(cur))
     return _plans_from_groups(blocks, groups, alms_per_block, edge_bytes)
+
+
+# ---------------------------------------------------------------------------
+# LM pipeline partitioning (the paper's multi-chip pipeline, for the zoo)
+# ---------------------------------------------------------------------------
+
+def partition_lm(cfg, n_stages: int, batch: int = 1, seq: int = 1,
+                 serve_mode: str = "sparse_cfmm",
+                 link_gbps_budget: float = 75.0) -> dict:
+    """Throughput-balanced pipeline stages for an LM (persistent weights).
+
+    The paper's Fig 7 discipline applied to transformers: split the layer
+    stack into ``n_stages`` contiguous stages with near-equal per-token
+    FLOPs, keep residual blocks atomic, and check the inter-stage link
+    bandwidth (activations (B, 1, d_model) per decode step, or (B, S, d)
+    for prefill) against the budget.  Weights stay resident per stage —
+    the analogue of compiling parameters into each chip.
+    """
+    from repro_torch.roofline.analytic import BYTES_PER_PARAM
+
+    sigs = cfg.layer_sigs()
+    # per-layer forward flops per token (matmul-only; attention excluded as
+    # cache-dependent — balancing by linear work matches the paper's
+    # MAC-based balance)
+    def layer_flops(sig):
+        d = cfg.d_model
+        f = 0.0
+        if sig["kind"] == "attn":
+            if cfg.mla:
+                m = cfg.mla
+                f += 2 * d * cfg.n_heads * (m.qk_nope + m.qk_rope)
+                f += 2 * d * (m.kv_lora + m.qk_rope)
+                f += 2 * m.kv_lora * cfg.n_heads * (m.qk_nope + m.v_dim)
+                f += 2 * cfg.n_heads * m.v_dim * d
+            else:
+                f += 2 * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+                f += 2 * cfg.n_heads * cfg.head_dim * d
+        elif sig["kind"] in ("mamba", "rwkv"):
+            di = cfg.ssm.d_inner if cfg.ssm.kind == "mamba" else d
+            f += 2 * d * 4 * di
+        if sig["moe"]:
+            m = cfg.moe
+            f += 2 * d * m.d_ff_expert * 3 * (m.top_k + m.n_shared)
+        elif sig["kind"] != "rwkv":
+            f += 2 * d * cfg.d_ff * 3
+        else:
+            f += 2 * d * cfg.d_ff * 2
+        return f
+
+    flops = [layer_flops(s) for s in sigs]
+    stages = split_stages(flops, n_stages)
+    bpp = BYTES_PER_PARAM.get(serve_mode, 2.0)
+    stage_flops = [sum(flops[i] for i in st) for st in stages]
+    # per-stage resident weight bytes (flops/token = 2*params for linears)
+    stage_weight_gb = [f / 2.0 * bpp / 1e9 for f in stage_flops]
+    # inter-stage activation traffic per step
+    act_bytes = batch * max(seq, 1) * cfg.d_model * 2
+    return dict(
+        n_stages=len(stages),
+        layers_per_stage=[len(s) for s in stages],
+        stage_flops_per_token=stage_flops,
+        balance=min(stage_flops) / max(stage_flops),
+        boundary_bytes_per_step=act_bytes,
+        link_gbps_at_10k_steps_s=act_bytes * 8 * 10_000 / 1e9,
+        link_budget_ok=act_bytes * 8 * 10_000 / 1e9 <= link_gbps_budget,
+        stage_weight_gb=stage_weight_gb,
+        serve_mode=serve_mode,
+    )

@@ -29,6 +29,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+# The devices whose tensors take a kernel's plain version: the CPU, and
+# the meta device, whose tensors hold no data (the dry run counts the
+# plain versions' work, as JAX's lowers its jnp references).  A CUDA
+# tensor launches the kernel or raises.
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")

@@ -50,7 +50,8 @@ import torch
 
 from repro_torch.core.sparsity import block_mask
 from repro_torch.kernels import ref
-from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
+from repro_torch.kernels._cuda import (I, P, CudaKernel, PLAIN_DEVICES,
+                                       check_cuda, ptr)
 
 KERNEL = CudaKernel("block_sparse", "block_sparse_launch",
                     (P,) * 5 + (I,) * 8 + (P,))
@@ -171,7 +172,7 @@ def block_sparse_matmul(x: torch.Tensor, w_blocks: torch.Tensor,
     x f32 or bf16; w_blocks (n_active, bk, bn) of x's type, meta and
     offsets as ``pack_blocks`` makes them.  The sum is f32 and rounds
     once."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.block_sparse_matmul_plain(x, w_blocks, meta, offsets,
                                              block_kn, n_blocks_n)
     M, K = x.shape

@@ -35,7 +35,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
+from repro_torch.kernels._cuda import (I, P, CudaKernel, PLAIN_DEVICES,
+                                       check_cuda, ptr)
 
 KERNEL = CudaKernel("cfmm_matmul", "cfmm_matmul_launch",
                     (P,) * 5 + (I,) * 8 + (P,))
@@ -104,7 +105,7 @@ def cfmm_matmul(x_q: torch.Tensor, codes: torch.Tensor,
                 scale: torch.Tensor | None = None) -> torch.Tensor:
     """x_q (M, K) int8 @ codes (K, N) int8 -> int32 (M, N), exact; or,
     with a per-column ``scale`` (N,) / (1, N), f32 ``acc * scale``."""
-    if x_q.device.type == "cpu":
+    if x_q.device.type in PLAIN_DEVICES:
         return cfmm_matmul_plain(x_q, codes, scale)
     M, K = x_q.shape
     N = codes.shape[1]

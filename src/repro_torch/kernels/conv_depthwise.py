@@ -39,7 +39,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
+from repro_torch.kernels._cuda import (I, P, CudaKernel, PLAIN_DEVICES,
+                                       check_cuda, ptr)
 from repro_torch.kernels.conv_implicit import (conv_outputs, plain_collector,
                                                zero_count_dict)
 
@@ -221,7 +222,7 @@ def conv2d_dw(x_q: torch.Tensor, w_tap: torch.Tensor,
     then the int32 accumulators with ``return_acc``, then the dict with
     ``profile_g``.
     """
-    if x_q.device.type == "cpu":
+    if x_q.device.type in PLAIN_DEVICES:
         return conv2d_dw_plain(x_q, w_tap, eff_scale, eff_bias, shortcut,
                                k=k, stride=stride, relu=relu,
                                return_acc=return_acc, profile_g=profile_g)

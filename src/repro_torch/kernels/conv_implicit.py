@@ -45,7 +45,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
+from repro_torch.kernels._cuda import (I, P, CudaKernel, PLAIN_DEVICES,
+                                       check_cuda, ptr)
 
 KERNEL = CudaKernel("conv_implicit", "conv_implicit_launch",
                     (P,) * 12 + (I,) * 18 + (P,))
@@ -250,7 +251,7 @@ def conv2d_implicit(x_q: torch.Tensor, w_sp: torch.Tensor,
     max|y|), then the int32 accumulators with ``return_acc``, then the
     dict with ``profile_g``.
     """
-    if x_q.device.type == "cpu":
+    if x_q.device.type in PLAIN_DEVICES:
         return conv2d_implicit_plain(x_q, w_sp, eff_scale, eff_bias,
                                      shortcut, k=k, stride=stride,
                                      relu=relu, return_acc=return_acc,

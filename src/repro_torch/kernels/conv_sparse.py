@@ -36,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda
+from repro_torch.kernels._cuda import (I, P, CudaKernel, PLAIN_DEVICES,
+                                       check_cuda)
 from repro_torch.kernels.conv_implicit import (conv_geometry, conv_launch,
                                                plain_collector, plan)
 
@@ -67,7 +68,7 @@ def conv2d_sparse(x_q: torch.Tensor, bitmap: torch.Tensor,
     values: (keep_k, n_out) int8 nonzero codes, ascending-row order
     Other arguments and the return as ``conv_implicit.conv2d_implicit``.
     """
-    if x_q.device.type == "cpu":
+    if x_q.device.type in PLAIN_DEVICES:
         return conv2d_sparse_plain(x_q, bitmap, values, eff_scale, eff_bias,
                                    shortcut, k=k, stride=stride, relu=relu,
                                    return_acc=return_acc,

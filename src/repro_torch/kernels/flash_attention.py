@@ -62,7 +62,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._cuda import F32, I, P, CudaKernel, check_cuda, ptr
+from repro_torch.kernels._cuda import (F32, I, P, CudaKernel,
+                                       PLAIN_DEVICES, check_cuda, ptr)
 
 KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
                     (P,) * 5 + (I,) * 10 + (F32, P))
@@ -213,7 +214,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B, KVH, G, Tq, D); k (B, KVH, Tk, D); v (B, KVH, Tk, Dv); f32 or
     bf16, all one type.  Returns (B, KVH, G, Tq, Dv) in v's type."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal, window)
     return _forward(q, k, v, causal, window, with_lse=False)[0]
 
@@ -221,7 +222,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_fwd(q, k, v, causal: bool = True, window=None):
     """``flash_attention`` that also returns each row's f32 log-sum-exp
     (B, KVH, G, Tq), for the backward: ``(out, lse)``."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal, window,
                                      return_lse=True)
     return _forward(q, k, v, causal, window, with_lse=True)
@@ -231,7 +232,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, causal: bool = True,
                         window=None):
     """dq, dk, dv of ``flash_attention`` at ``dout``, from the forward's
     inputs, output and log-sum-exp; in the inputs' types."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_bwd_plain(q, k, v, o, dout, lse, causal,
                                          window)
     B, KVH, G, Tq, D = q.shape

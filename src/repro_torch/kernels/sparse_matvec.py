@@ -32,7 +32,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._cuda import I, P, CudaKernel, check_cuda, ptr
+from repro_torch.kernels._cuda import (I, P, CudaKernel, PLAIN_DEVICES,
+                                       check_cuda, ptr)
 
 KERNEL = CudaKernel("sparse_matvec", "sparse_matvec_launch",
                     (P,) * 4 + (I,) * 7 + (P,))
@@ -67,7 +68,7 @@ def sparse_matvec(x_q: torch.Tensor, bitmap: torch.Tensor,
     bitmap (K/8, N) uint8, values (keep_k, N) int8; K % 8 == 0 (the
     caller pads x with zero columns to the bitmap's rows).
     """
-    if x_q.device.type == "cpu":
+    if x_q.device.type in PLAIN_DEVICES:
         return ref.sparse_matvec_ref(x_q, bitmap, values)
     M, K = x_q.shape
     kb8, N = bitmap.shape

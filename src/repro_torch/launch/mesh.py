@@ -1,6 +1,11 @@
-"""Device placement for the pipeline serving path and the replicated
-front door (ports ``pipeline_stage_devices`` and
-``replica_pipeline_devices`` of ``repro/launch/mesh.py``).
+"""Meshes and device placement (ports ``repro/launch/mesh.py``): the
+production and debug meshes of the sharded dry run, the devices of the
+pipeline serving path and of the replicated front door.
+
+The production mesh's logical shape is JAX's: 16 x 16 ``("data",
+"model")``, or 2 x 16 x 16 ``("pod", "data", "model")`` with a leading
+pure data-parallel axis.  On H100s that reads as 256 or 512 GPUs, 32 or
+64 eight-GPU nodes; the 16-way axes cross nodes.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``resolve_device("cuda")`` raises when CUDA is absent instead of falling
@@ -8,7 +13,42 @@ back.  Nothing here touches device state at import time.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+
+class ShapeMesh:
+    """A mesh of logical shape alone, for the dry run without that many
+    processes: ``shape`` is ``{axis: size}`` (JAX's ``Mesh.shape``),
+    ``size`` the device count."""
+
+    def __init__(self, shape: tuple, axis_names: tuple):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, shape, strict=True))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The 16 x 16 (or 2 x 16 x 16) mesh as a ``ShapeMesh``; a caller
+    with a live process group of that size builds its ``DeviceMesh``
+    with ``make_debug_mesh(shape, axes)``."""
+    if multi_pod:
+        return ShapeMesh((2, 16, 16), ("pod", "data", "model"))
+    return ShapeMesh((16, 16), ("data", "model"))
+
+
+def make_debug_mesh(shape=(2, 2), axes=("data", "model")):
+    """A ``DeviceMesh`` over the live process group (its world size is
+    ``prod(shape)``), on the card under NCCL, else on the CPU."""
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compiled_linear import apply_linear
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -449,10 +450,11 @@ def forward_train(params, batch, cfg: ArchConfig, qat=False):
         return _whisper_forward(params, batch, cfg, qat=qat)
     tokens = batch["tokens"]
     B, T = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
+    x = shard(_embed_tokens(params, tokens, cfg), "batch", "seq", None)
     positions = _positions(cfg, batch, B, T).to(x.device)
     x, _, aux = _run_stack(params, x, cfg, _grouping_info(cfg), positions,
                            qat=qat, remat=cfg.remat)
+    x = shard(x, "batch", "seq", None)
     return _logits(params, x, cfg, qat), aux
 
 
@@ -473,9 +475,7 @@ def forward_prefill(params, batch, cfg: ArchConfig, cache):
         return _whisper_prefill(params, batch, cfg, cache)
     tokens = batch["tokens"]
     B, T = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
-    # the JAX package constrains x's sharding here (distributed/sharding
-    # ``shard``), a no-op without a mesh; the port has no mesh
+    x = shard(_embed_tokens(params, tokens, cfg), "batch", "seq", None)
     positions = _positions(cfg, batch, B, T).to(x.device)
     info = _grouping_info(cfg)
     x, new_cache, _ = _run_stack(params, x, cfg, info, positions,

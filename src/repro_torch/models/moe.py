@@ -15,8 +15,9 @@ its expert's queue.  Dispatch writes the kept picks into an
 each on its ``(cap, d)`` rows, empty rows too, as JAX's ``vmap`` runs
 them: the compiled modes' activation scale is per expert.  The combine
 adds each token's K weighted outputs in choice order in bf16, the order
-of XLA's scatter-add on the CPU.  JAX's ``shard`` constraints are no-ops
-without a mesh; the port has none (ROADMAP A8 step 7).
+of XLA's scatter-add on the CPU.  The expert buffers carry JAX's
+``shard`` constraints (experts over the mesh's ``model`` axis), no-ops
+without an active mesh (distributed/sharding.py).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import ffn, ffn_init
 
 
@@ -110,10 +112,11 @@ def moe_forward(p, x, cfg, qat=False, capacity_factor=1.25):
     tok_id = torch.arange(n_tok, device=x.device).repeat_interleave(K)
     x_e = torch.zeros((E, cap + 1, d), dtype=x.dtype, device=x.device)
     x_e[flat_e, torch.where(r.keep, r.slot, cap)] = xt[tok_id]
-    x_e = x_e[:, :cap]
+    x_e = shard(x_e[:, :cap], "experts_stack", None, None)
     experts = nn.unstack(p["experts"], E)
     y_e = torch.stack([ffn(experts[e], x_e[e], act=m.act, qat=qat)
                        for e in range(E)])                  # (E, cap, d)
+    y_e = shard(y_e, "experts_stack", None, None)
 
     # combine: each kept pick's output times its gate (in bf16), the K
     # terms of a token added one by one in choice order

@@ -90,6 +90,18 @@ def _is_param(x) -> bool:
     return isinstance(x, Param)
 
 
+class ShapeOnly:
+    """Stands in for the ``torch.Generator`` of an init to build the tree
+    on the ``meta`` device: every leaf has its shape and dtype and holds
+    no data, so a full-size tree allocates nothing (the counterpart of
+    ``jax.eval_shape`` over an init)."""
+
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = ShapeOnly()
+
+
 def param(gen: torch.Generator, shape, axes, init: str = "normal",
           kind: str = "generic", scale: float | None = None) -> Param:
     """Create an initialized f32 Param with logical axes, on the device of
@@ -99,11 +111,14 @@ def param(gen: torch.Generator, shape, axes, init: str = "normal",
     by default 1/sqrt(fan_in) with fan_in = shape[0], as in the JAX
     package), 'zeros', 'ones'.  Values come from ``gen``; they differ
     from the JAX package's for the same seed, so parity tests carry
-    weights across with ``params_from_numpy`` instead.
+    weights across with ``params_from_numpy`` instead.  ``SHAPE_ONLY``
+    in place of ``gen`` gives a meta tensor and draws nothing.
     """
     assert len(axes) == len(shape), (axes, shape)
     dev = gen.device if gen is not None else torch.device("cpu")
-    if init == "zeros":
+    if dev.type == "meta":
+        value = torch.empty(shape, device=dev)
+    elif init == "zeros":
         value = torch.zeros(shape, device=dev)
     elif init == "ones":
         value = torch.ones(shape, device=dev)
@@ -210,7 +225,8 @@ def vmap_init(init_fn: Callable, gen: torch.Generator, n: int, *args,
 
     Each stacked leaf is allocated once and filled one layer at a time,
     so the peak holds the stacked tree and one layer, not two copies of
-    the stack (Phi-3-medium's 40 layers are ~58 GB in f32)."""
+    the stack (Phi-3-medium's 40 layers are ~58 GB in f32).  On the meta
+    device (``SHAPE_ONLY``) one layer's shapes make the stack."""
     layer = init_fn(gen, *args, **kwargs)
     stacked = tree_map(
         lambda p: Param(torch.empty((n,) + tuple(p.value.shape),
@@ -218,6 +234,8 @@ def vmap_init(init_fn: Callable, gen: torch.Generator, n: int, *args,
                                     device=p.value.device),
                         ("layers",) + p.axes, p.kind) if _is_param(p) else p,
         layer, is_leaf=_is_param)
+    if gen is not None and gen.device.type == "meta":
+        return stacked
     slots = [p.value for p in tree_leaves(stacked, is_leaf=_is_param)
              if _is_param(p)]
     for i in range(n):
