@@ -25,9 +25,12 @@ every idle stage-tick is attributed to exactly one cause — ``fill``,
 
 With a ``repro_torch.obs.Telemetry`` attached, each busy stage-tick
 records a span (pid ``1 + replica``, tid = stage) covering the host-side
-launch window, idle stage-ticks and edge moves become instant events,
-and profiled stage programs' zero-count dicts feed
-``telemetry.sparsity``.
+launch window, the injection's copy to stage 0's device an ``h2d`` span
+on the replica's host thread, both with the microbatch's number ``mb``
+(``inject_mb``, set by the engine), and profiled stage programs'
+zero-count dicts feed ``telemetry.sparsity``.  Idle stage-ticks are the
+``pipe.stage{s}.idle.{cause}`` counters and edge payloads ``stats()``'s
+``edge_bytes``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch
 
 from repro_torch import nn
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import HOST_TID
 
 # every idle stage-tick gets exactly one of these (DESIGN.md §11)
 BUBBLE_CAUSES = ("fill", "starved", "drain", "host")
@@ -88,6 +92,12 @@ class ConvPipeline:
         self.n_stages = len(stages)
         self._inlet = [None] * self.n_stages    # per-stage input buffer
         self._tags = [None] * self.n_stages
+        # microbatch numbers riding with the inlets (trace args): the
+        # engine sets inject_mb before a tick that injects; a traced tick
+        # lists the numbers of the microbatches it completes in done_mbs
+        self._mbs = [None] * self.n_stages
+        self.inject_mb = None
+        self.done_mbs = []
         self.edge_bytes: list = [None] * max(self.n_stages - 1, 0)
         # schedule counters live in the registry (shared with the owning
         # engine when it passes its own)
@@ -109,6 +119,7 @@ class ConvPipeline:
         self.telemetry = telemetry
         self._profiled = bool(telemetry is not None and telemetry.profiled)
         tr = telemetry.trace if telemetry is not None else None
+        self._trace = tr
         if tr is not None:
             pid = 1 + replica
             tr.name_process(pid, f"replica {replica}")
@@ -146,12 +157,21 @@ class ConvPipeline:
         done = []
         self._ticks.inc()
         tel = self.telemetry
-        tr = tel.trace if tel is not None else None
+        tr = self._trace
         pid = 1 + self.replica
+        if tr is not None:
+            self.done_mbs = []
         if inject is not None:
             assert self._inlet[0] is None, "stage 0 inlet busy"
+            t_begin = tr.now() if tr is not None else 0.0
             self._inlet[0] = nn.to_device(inject, self.stages[0].device)
+            if tr is not None:
+                tr.span("h2d", "engine", pid, HOST_TID, t_begin, tr.now(),
+                        mb=self.inject_mb,
+                        bytes=inject.numel() * inject.element_size(),
+                        pinned=inject.is_pinned())
             self._tags[0] = tag
+            self._mbs[0] = self.inject_mb
         # bubble attribution over the post-injection occupancy: every
         # stage-tick is either a launch or gets exactly ONE idle cause
         occ = [b is not None for b in self._inlet]
@@ -166,9 +186,6 @@ class ConvPipeline:
             else:
                 cause = "starved" if self._seen[s] else "fill"
             self._idle[cause][s].inc()
-            if tr is not None:
-                tr.instant("idle", "pipeline", pid, s, cause=cause,
-                           tick=self._ticks.value)
         # reverse stage order: stage s launches on the microbatch its
         # inlet buffered, then frees the inlet for the predecessor's
         # output issued later in this same tick
@@ -176,10 +193,13 @@ class ConvPipeline:
             if self._inlet[s] is None:
                 continue
             stage = self.stages[s]
-            carry, t = self._inlet[s], self._tags[s]
+            carry, t, m = self._inlet[s], self._tags[s], self._mbs[s]
             self._inlet[s] = None
-            t_begin = tr.now() if tr is not None else 0.0
-            out = stage.fn(stage.params, carry)
+            if tr is None:
+                out = stage.fn(stage.params, carry)
+            else:
+                t_begin = tr.now()
+                out = stage.fn(stage.params, carry, mb=m)
             if self._profiled:
                 out, aux = out
                 tel.sparsity.add(aux, count_microbatch=(s == 0))
@@ -188,19 +208,19 @@ class ConvPipeline:
                 # launches are asynchronous; a sync here would serialize
                 # the very overlap the pipe exists for)
                 tr.span(f"stage{s}", "pipeline", pid, s, t_begin,
-                        tr.now(), tick=self._ticks.value,
+                        tr.now(), tick=self._ticks.value, mb=m,
                         **self._tag_args(t))
             if s + 1 < self.n_stages:
                 if self.edge_bytes[s] is None:
                     self.edge_bytes[s] = carry_bytes(out)
                 out = nn.to_device(out, self.stages[s + 1].device)
                 self._inlet[s + 1], self._tags[s + 1] = out, t
-                if tr is not None:
-                    tr.instant("edge", "pipeline", pid, s, edge=s,
-                               **self.edge_bytes[s])
+                self._mbs[s + 1] = m
             else:
                 self._mb_done.inc()
                 done.append((t, out))
+                if tr is not None:
+                    self.done_mbs.append(m)
         if not self.busy:
             # pipe drained: the next wave's early idle stage-ticks are
             # fill again, not starvation
@@ -231,6 +251,7 @@ class ConvPipeline:
                 tags.append(self._tags[s])
             self._inlet[s] = None
             self._tags[s] = None
+            self._mbs[s] = None
         self._seen = [False] * self.n_stages
         return tags
 

@@ -26,9 +26,12 @@ goodput, shed fraction, and p50/p95 (DESIGN.md §10).
 
 Telemetry (--trace out.json [--sparsity-groups G]): attach a
 ``repro_torch.obs.Telemetry`` to the fleet and save the whole serve — request
-admission/queue/dispatch/collect lifecycles, per-stage tick spans, idle
-and edge markers — as Chrome trace-event JSON, loadable directly at
-https://ui.perfetto.dev (DESIGN.md §11).  ``--sparsity-groups`` also
+admission/queue/dispatch/collect lifecycles with the door's ``validate``,
+the door loop's steps, each engine step's ``pack``/``h2d``/``wait``/
+``scatter``, per-stage tick spans and the graph units inside them, and
+the clock pairs that line the file up with a ``torch.profiler`` trace —
+as Chrome trace-event JSON, loadable directly at https://ui.perfetto.dev
+(DESIGN.md §11).  ``--sparsity-groups`` also
 profiles post-ReLU activation sparsity and prints the per-layer summary.
 """
 from __future__ import annotations

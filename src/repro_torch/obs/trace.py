@@ -4,11 +4,18 @@
 Every request that crosses the front door gets a lifecycle of spans —
 ``admission`` (validation + SLO check inside ``submit``), ``queue``
 (admitted → first row routed), ``dispatch`` (first → last row handed to
-a replica), ``collect`` (last dispatch → logits scattered back) — and
-every pipeline tick gets one ``stage-tick`` span per busy stage plus
-idle/edge markers.  Spans land in a bounded in-memory buffer and export
-as Chrome trace-event JSON (``Trace.to_chrome_trace()``), loadable
-directly in Perfetto / ``chrome://tracing``.
+a replica), ``collect`` (last dispatch → logits scattered back).  Inside
+the serving path the host's work gets spans of its own: the door's
+``validate`` on the request's track, the door loop's ``step`` (with
+``dispatch_rows`` and ``collect``) and the set-up's ``compile`` on
+``DOOR_TID``, each replica's ``engine.step`` (with ``pack``, ``h2d``,
+``wait`` and ``scatter``) on its ``HOST_TID`` thread, and one
+``stage{s}`` span per busy stage tick holding one ``unit`` span per
+graph unit.  Microbatch spans carry ``mb``, the engine's sequence number
+of the microbatch, which ``pack``, ``stage{s}`` and ``scatter`` join to
+the request ids (``rids``).  Spans land in a bounded in-memory buffer and
+export as Chrome trace-event JSON (``Trace.to_chrome_trace()``),
+loadable directly in Perfetto / ``chrome://tracing``.
 
 Design choices that keep this correct under load:
 
@@ -28,6 +35,14 @@ Design choices that keep this correct under load:
   shared with the frontend, so span timestamps and the scheduler's SLO
   arithmetic read the same axis.  Exported ``ts`` is microseconds since
   the trace epoch (clock at construction).
+* **One clock with the profiler.**  ``torch.profiler`` stamps its events
+  in nanoseconds of the system clock (``time.time_ns``).  The trace
+  pairs its clock with that one twice — at construction and at the
+  latest ``sync_point()`` (export takes one) — each pair the midpoint of
+  two clock reads around one ``time_ns``; ``to_unix_ns`` interpolates
+  between the two pairs, so the clocks' drift over a long window does
+  not build up, and the export's ``otherData["clock_sync"]`` carries
+  both pairs so a file lines up with a profiler trace.
 
 ``python -m repro_torch.obs.trace out.json`` validates a file against the
 schema (required keys, monotonic ts, matched B/E pairs) — CI runs this
@@ -43,6 +58,13 @@ import time
 
 # phase types we emit / accept
 _PH_ALLOWED = ("B", "E", "i", "I", "M", "X")
+
+# pid 0 is the front door, whose request tracks are tid = rid (warm-ups
+# take small negative rids); its own loop and set-up take a tid no rid
+# takes.  A replica's pid holds its stages at tid = stage and its
+# engine's host work at HOST_TID.
+DOOR_TID = -(2 ** 31)
+HOST_TID = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +94,16 @@ class Instant:
 class Trace:
     """Bounded in-memory span buffer with Chrome trace-event export."""
 
-    def __init__(self, capacity: int = 200_000, clock=time.perf_counter):
+    def __init__(self, capacity: int = 200_000, clock=time.perf_counter,
+                 unix_ns=time.time_ns):
         assert capacity >= 1, capacity
         self.capacity = capacity
         self.clock = clock
+        self._unix_ns = unix_ns
         self.t0 = clock()
+        # (clock seconds, unix ns): the construction's pair and the
+        # latest sync_point's (None until one is taken)
+        self.sync_pairs = [self._pair(), None]
         self.spans: collections.deque[Span] = collections.deque(
             maxlen=capacity)
         self.instants: collections.deque[Instant] = collections.deque(
@@ -94,6 +121,29 @@ class Trace:
     def us(self, t_abs: float) -> float:
         """Absolute clock seconds -> µs since the trace epoch."""
         return (t_abs - self.t0) * 1e6
+
+    def _pair(self) -> tuple:
+        a = self.clock()
+        u = self._unix_ns()
+        b = self.clock()
+        return ((a + b) / 2, u)
+
+    def sync_point(self):
+        """Pair the clock with the system clock again (the second pair
+        of ``to_unix_ns``'s interpolation)."""
+        self.sync_pairs[1] = self._pair()
+
+    def to_unix_ns(self, t_abs: float) -> int:
+        """Absolute clock seconds -> the profiler's nanoseconds
+        (``time.time_ns``), by linear interpolation between the two sync
+        pairs (an offset alone until ``sync_point`` has been called)."""
+        (c0, u0), p1 = self.sync_pairs
+        rate = 1e9
+        if p1 is not None and p1[0] != c0:
+            rate = (p1[1] - u0) / (p1[0] - c0)
+        # the offset in float, the sum in int: a float of ~1.8e18 ns
+        # holds only every 256th ns
+        return u0 + round((t_abs - c0) * rate)
 
     def span(self, name, cat, pid, tid, t_begin, t_end, **args):
         """Record a completed span; ``t_begin``/``t_end`` are absolute
@@ -122,7 +172,10 @@ class Trace:
 
     def to_chrome_trace(self) -> dict:
         """Chrome trace-event JSON object: ``{"traceEvents": [...]}``,
-        events sorted by ts with matched B/E pairs per (pid, tid)."""
+        events sorted by ts with matched B/E pairs per (pid, tid);
+        ``otherData["clock_sync"]`` pairs the export's ``ts`` (µs) with
+        the profiler's unix nanoseconds, at construction and now."""
+        self.sync_point()
         meta = []
         for pid, name in sorted(self._proc_names.items()):
             meta.append({"name": "process_name", "ph": "M", "ts": 0.0,
@@ -168,8 +221,11 @@ class Trace:
                            "s": "t", "args": i.args})
 
         events.sort(key=lambda e: e["ts"])      # stable: per-track order
+        sync = [{"ts_us": self.us(c), "unix_ns": u}
+                for c, u in self.sync_pairs]
         return {"traceEvents": meta + events, "displayTimeUnit": "ms",
-                "otherData": {"dropped_events": self.dropped}}
+                "otherData": {"dropped_events": self.dropped,
+                              "clock_sync": sync}}
 
     def save(self, path):
         with open(path, "w") as f:

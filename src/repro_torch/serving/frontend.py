@@ -84,6 +84,7 @@ import numpy as np
 from repro_torch.core.compiled_linear import ensure_compiled
 from repro_torch.launch.mesh import local_devices, replica_pipeline_devices
 from repro_torch.obs.metrics import LIFE, MetricsRegistry, percentile
+from repro_torch.obs.trace import DOOR_TID
 from repro_torch.serving.faults import ReplicaFailure
 from repro_torch.serving.pipeline import PipelineEngine, PipelineRequest
 
@@ -165,15 +166,22 @@ class ResNetFrontend:
         self.microbatch = microbatch
         self.continuous = continuous
         self.telemetry = telemetry
-        if telemetry is not None and telemetry.trace is not None:
+        tr = telemetry.trace if telemetry is not None else None
+        self._trace = tr
+        if tr is not None:
             # spans and SLO arithmetic must share one time axis: the
             # trace's clock wins (Telemetry docstring) — callers with a
             # fake clock pass it to Telemetry too
             clock = telemetry.clock
-            telemetry.trace.name_process(0, "frontend")
+            tr.name_process(0, "frontend")
+            tr.name_thread(0, DOOR_TID, "door loop")
         # compile ONCE; every replica shares this tree and only moves its
         # own stages' subtrees onto its device group
+        t_begin = tr.now() if tr is not None else 0.0
         self.params = ensure_compiled(params, mode, sparsity)
+        if tr is not None:
+            tr.span("compile", "setup", 0, DOOR_TID, t_begin, tr.now(),
+                    mode=mode, sparsity=sparsity)
         self._groups = replica_pipeline_devices(n_replicas, n_stages,
                                                 devices)
         # kept so restart_replica can rebuild an engine identically
@@ -368,7 +376,13 @@ class ResNetFrontend:
         outcome: ``Admitted``, or — when ``slo_p95_s`` is set and the
         estimated wait exceeds it — ``Rejected`` (the request is NOT
         queued; ``req.rejected`` is set)."""
+        # stamped before validation, so admission and latency_s count it
+        t_submit = self._clock()
         images = self._validate(req)
+        tr = self._trace
+        if tr is not None:
+            tr.span("validate", "door", 0, req.rid, t_submit, tr.now(),
+                    rid=req.rid, rows=len(images), bytes=images.nbytes)
         self._check_not_live(req)
         req.images = images
         req.logits = None
@@ -376,10 +390,9 @@ class ResNetFrontend:
         req.rejected = False
         req.replica = None
         req.rows_submitted = req.rows_done = req.rows_routed = 0
-        req.t_submit = self._clock()
+        req.t_submit = t_submit
         req.t_admitted = req.t_first_dispatch = req.t_last_dispatch = None
         req.t_done = None
-        tr = (self.telemetry.trace if self.telemetry is not None else None)
         n_rows = len(req.images)
         est = self._estimate_wait_s(n_rows)
         if (self.slo_p95_s is not None and est is not None and n_rows
@@ -496,10 +509,9 @@ class ResNetFrontend:
         self._replicas_failed.inc()
         self.failures.append({"replica": r, "reason": reason,
                               "step": self._steps})
-        if (self.telemetry is not None
-                and self.telemetry.trace is not None):
-            self.telemetry.trace.instant("replica-failed", "door", 0, 0,
-                                         replica=r, reason=reason)
+        if self._trace is not None:
+            self._trace.instant("replica-failed", "door", 0, 0,
+                                replica=r, reason=reason)
         if not self.recover:
             return
         spans = self.replicas[r].extract_pending()
@@ -603,7 +615,7 @@ class ResNetFrontend:
         for req in self._inflight:
             (done if req.done else still).append(req)
         now = self._clock()
-        tr = (self.telemetry.trace if self.telemetry is not None else None)
+        tr = self._trace
         for req in done:
             req.t_done = now
             self._latencies.append(req.t_done - req.t_submit)
@@ -630,7 +642,12 @@ class ResNetFrontend:
                 f"{self.failures} — restart_replica() to recover")
             err.fleet_stats = self.stats()
             raise err
+        tr = self._trace
+        t_begin = tr.now() if tr is not None else 0.0
         self._dispatch()
+        if tr is not None:
+            tr.span("dispatch_rows", "door", 0, DOOR_TID, t_begin,
+                    tr.now(), step=self._steps)
         busy = False
         for r, eng in enumerate(self.replicas):
             if self.failed[r]:
@@ -647,7 +664,16 @@ class ResNetFrontend:
             if self.watchdog_ticks is not None:
                 self._watch(r, eng)
         self._measure_service_rate(t_start)
-        self._collect()
+        if tr is not None:
+            t_collect = tr.now()
+            done = self._collect()
+            t_end = tr.now()
+            tr.span("collect", "door", 0, DOOR_TID, t_collect, t_end,
+                    step=self._steps, rids=[r.rid for r in done])
+            tr.span("step", "door", 0, DOOR_TID, t_begin, t_end,
+                    step=self._steps)
+        else:
+            self._collect()
         return (busy or bool(self.queue) or bool(self._requeue)
                 or bool(self._inflight))
 

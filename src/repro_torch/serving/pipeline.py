@@ -27,9 +27,12 @@ The row-granular surface of the replicated front door
 of a request, ``pending_rows`` is the O(1) load the router compares,
 ``progress_marker`` what its watchdog watches, and ``extract_pending``
 the drain half of replica failure recovery.  With a
-``repro_torch.obs.Telemetry`` the stages record trace spans and, with
-sparsity groups, run the profiled stage programs (units return their
-zero-count dicts, which feed ``telemetry.sparsity``);
+``repro_torch.obs.Telemetry`` the engine records its host work as trace
+spans (``engine.step`` holding ``pack``, the pipe's ``h2d`` and
+``stage{s}``, ``wait`` and ``scatter``, each with the microbatch's
+number ``mb``), the stage programs one ``unit`` span per graph unit, and,
+with sparsity groups, the stages run the profiled stage programs (units
+return their zero-count dicts, which feed ``telemetry.sparsity``);
 ``reference_profile`` is the single-device oracle of that profile.
 
 The engine runs on the card by default (``device="cuda"``) and raises
@@ -50,6 +53,7 @@ from repro_torch.launch.mesh import local_devices, pipeline_stage_devices
 from repro_torch.models.graph import compile_graph
 from repro_torch.obs.metrics import LIFE, MetricsRegistry
 from repro_torch.obs.sparsity import SparsityProfiler
+from repro_torch.obs.trace import HOST_TID
 
 
 @dataclasses.dataclass
@@ -79,8 +83,27 @@ class _RowSpan:
         return self.stop - self.cursor
 
 
-def _make_stage_fn(unit_fns, profiled: bool = False):
-    if profiled:
+def _make_stage_fn(unit_fns, profiled: bool = False, trace=None,
+                   unit_names=(), track=(0, 0)):
+    """One stage's program: its units in order.  With a ``trace`` the
+    program takes the microbatch's number (``mb=``) and records one
+    ``unit`` span per unit, named by the unit, on ``track`` (pid, tid):
+    the host's time enqueueing that unit's launches."""
+    if trace is not None:
+        pid, tid = track
+
+        def stage_fn(stage_params, carry, mb=None):
+            aux = {}
+            for fn, p, name in zip(unit_fns, stage_params, unit_names):
+                t_begin = trace.now()
+                carry = fn(p, carry)
+                if profiled:
+                    carry, a = carry
+                    aux.update(a)
+                trace.span(name, "unit", pid, tid, t_begin, trace.now(),
+                           mb=mb)
+            return (carry, aux) if profiled else carry
+    elif profiled:
         # profiled units return (carry, aux); the stage program merges its
         # units' aux dicts (layer names are globally unique) and the pipe
         # feeds them to telemetry.sparsity
@@ -166,6 +189,10 @@ class PipelineEngine:
         # already-compiled unboxed tree
         self.params = ensure_compiled(params, mode, sparsity)
         self.telemetry = telemetry
+        self._trace = telemetry.trace if telemetry is not None else None
+        self._pid = 1 + replica                # the replica's trace pid
+        if self._trace is not None:
+            self._trace.name_thread(self._pid, HOST_TID, "host")
         # one registry per engine; the pipe shares it
         self.metrics = MetricsRegistry()
         self._mb_injected = self.metrics.counter("engine.mb_injected")
@@ -234,12 +261,14 @@ class PipelineEngine:
             # the stage's device holds ONLY these units' constant weights
             stage_params = nn.to_device(tuple(u.params for u in mine),
                                         devices[s])
+            names = tuple(u.name for u in mine)
             stages.append(PipelineStage(
                 index=s, device=devices[s],
                 fn=_make_stage_fn(tuple(u.fn for u in mine),
-                                  profiled=self._profiled),
-                params=stage_params,
-                unit_names=tuple(u.name for u in mine)))
+                                  profiled=self._profiled,
+                                  trace=self._trace, unit_names=names,
+                                  track=(self._pid, s)),
+                params=stage_params, unit_names=names))
         return stages
 
     # -- request management --------------------------------------------
@@ -271,7 +300,12 @@ class PipelineEngine:
         microbatch.  With ``pack_requests`` rows from DIFFERENT requests
         share a microbatch; otherwise a microbatch stops at the first
         span boundary.  Returns (segments, rows): segments are per-row
-        request tags ``(request, start_row, n_rows)`` in row order."""
+        request tags ``(request, start_row, n_rows)`` in row order.  Traced,
+        a ``pack`` span records the microbatch's number ``mb``, its rows,
+        its parts and the bytes ``np.concatenate`` wrote (0 when one part
+        passes through)."""
+        tr = self._trace
+        t_begin = tr.now() if tr is not None else 0.0
         segs, parts = [], []
         need = self.microbatch
         while self.queue and need > 0:
@@ -295,13 +329,24 @@ class PipelineEngine:
         if not segs:
             return None, None
         rows = parts[0] if len(parts) == 1 else np.concatenate(parts)
-        return segs, torch.as_tensor(np.asarray(rows, np.float32))
+        mb = torch.as_tensor(np.asarray(rows, np.float32))
+        if tr is not None:
+            tr.span("pack", "engine", self._pid, HOST_TID, t_begin,
+                    tr.now(), mb=self._mb_injected.value + 1,
+                    rows=len(rows), parts=len(parts),
+                    bytes=rows.nbytes if len(parts) > 1 else 0)
+        return segs, mb
 
     @torch.inference_mode()
     def step(self) -> bool:
         """Inject one microbatch (if any rows are queued) and advance the
         schedule one tick; completed rows scatter back to their segments'
-        requests.  Returns False once idle."""
+        requests.  Returns False once idle.  Traced, a busy step is an
+        ``engine.step`` span holding ``pack``, the pipe's spans, and per
+        completed microbatch ``wait`` (the host blocked on the card in
+        ``out.cpu()``) and ``scatter``."""
+        tr = self._trace
+        t_begin = tr.now() if tr is not None else 0.0
         tag = mb = None
         if self.pipe.inlet_free:
             tag, mb = self._next_microbatch()
@@ -311,9 +356,17 @@ class PipelineEngine:
             self._rows_in_flight += int(mb.shape[0])
             self._mb_injected.inc()
             self._rows_injected.inc(int(mb.shape[0]))
+            self.pipe.inject_mb = self._mb_injected.value
         self.pipe.door_rows = self.door_rows
-        for segs, out in self.pipe.tick(inject=mb, tag=tag):
+        for i, (segs, out) in enumerate(self.pipe.tick(inject=mb, tag=tag)):
+            if tr is not None:
+                done_mb = self.pipe.done_mbs[i]
+                t_wait = tr.now()
             out = out.cpu().numpy()
+            if tr is not None:
+                t_scatter = tr.now()
+                tr.span("wait", "engine", self._pid, HOST_TID, t_wait,
+                        t_scatter, mb=done_mb)
             off = 0
             for req, start, n in segs:
                 if req.logits is None:
@@ -326,6 +379,14 @@ class PipelineEngine:
             assert off == out.shape[0], (off, out.shape)
             self._rows_in_flight -= out.shape[0]
             self._rows_completed.inc(int(out.shape[0]))
+            if tr is not None:
+                tr.span("scatter", "engine", self._pid, HOST_TID, t_scatter,
+                        tr.now(), mb=done_mb,
+                        rids=[req.rid for req, _, _ in segs])
+        if tr is not None:
+            tr.span("engine.step", "engine", self._pid, HOST_TID, t_begin,
+                    tr.now(), mb=(self.pipe.inject_mb if mb is not None
+                                  else None))
         return True
 
     def run(self, requests: list) -> list:
